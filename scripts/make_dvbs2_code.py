@@ -5,7 +5,7 @@ Writes, per rate:
       quasi-cyclic ordering; reference CSV format eid,cid,vid with the
       first-row totals convention) — consumable by every CLI's generic
       path, e.g.
-      ``python -m qamreconciliation_tpu.sims.sim_bsc dvbs2_34_exact.csv``
+      ``python -m qamreconciliation_jax.sims.sim_bsc dvbs2_34_exact.csv``
   dvbs2_<rate>_qc.csv — the full-wrap QC base-edge CSV (z=360) for the
       ``--qc`` fast paths (one extra edge vs the exact H; see
       models/dvbs2.to_qc_base).
@@ -37,11 +37,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
     rates = args.rate or ["1/2", "3/4"]
 
-    from qamreconciliation_tpu.models.dvbs2 import (
+    from qamreconciliation_jax.models.dvbs2 import (
         Z, expanded_edges, make_table, parse_address_table, to_qc_base,
     )
-    from qamreconciliation_tpu.models.qc_decoder import save_qc_csv
-    from qamreconciliation_tpu.utils.edgefile import save_edge_csv
+    from qamreconciliation_jax.models.qc_decoder import save_qc_csv
+    from qamreconciliation_jax.utils.edgefile import save_edge_csv
 
     os.makedirs(args.out_dir, exist_ok=True)
     for rate in rates:

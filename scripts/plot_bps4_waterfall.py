@@ -1,7 +1,7 @@
 """Render the 16-PAM (bps=4) mode/sign-configuration waterfall artifact.
 
-Consumes four sim_reconciliation CSVs measured on the real TPU with
-identical seeds/code/maxiter (BASELINE config 4's regime — reference:
+Consumes four sim_reconciliation CSVs run with identical
+seeds/code/maxiter (reference:
 sims/reconciliation.pyx:173/253 via sim_reconciliation.py --hard/--direct/
 --configuration-base):
 
@@ -40,7 +40,7 @@ def main(alt_csv, base_csv, hard_csv, direct_csv, out_png):
     axes[0].legend(fontsize=8)
     fig.suptitle(
         "16-PAM (bps=4) reconciliation modes, QC(3,6) N=64800 rate-1/2, "
-        "maxiter=50, 1024 frames/point, TPU v5e", fontsize=10,
+        "maxiter=50, 1024 frames/point", fontsize=10,
     )
     fig.tight_layout()
     fig.savefig(out_png, dpi=120)

@@ -1,8 +1,8 @@
 """Render the sum-product vs normalized-min-sum BER/FER waterfall artifact.
 
 Consumes two CSVs produced by sim_reconciliation (schema ``EsN0dB,ber,fer,
-iters`` — reference: sims/sim_reconciliation.py:96-102) measured on the
-real TPU with identical seeds/code, and writes the comparison figure used
+iters`` — reference: sims/sim_reconciliation.py:96-102) run with
+identical seeds/code, and writes the comparison figure used
 in README/docs (docs/img/checkrule_waterfall.png).
 
 Usage: python scripts/plot_checkrule_waterfall.py SP.csv MS.csv OUT.png
@@ -32,7 +32,7 @@ def main(sp_csv, ms_csv, out_png):
     axes[0].legend(fontsize=8)
     fig.suptitle(
         "Softening reverse reconciliation, QC(3,6) N=64800 rate-1/2, "
-        "maxiter=50, TPU v5e", fontsize=10,
+        "maxiter=50", fontsize=10,
     )
     fig.tight_layout()
     fig.savefig(out_png, dpi=120)

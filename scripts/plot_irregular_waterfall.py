@@ -1,15 +1,14 @@
 """Render the IRREGULAR-code engine waterfall artifact.
 
 QC-IRA mixed-degree code (the structure class of real DVB-S2/5G
-standards, models/qc_decoder.make_qc_ira) at DVB-S2 scale, measured on
-the real TPU with identical seeds/protocol (sim_reconciliation CLI via
+standards, models/qc_decoder.make_qc_ira) at DVB-S2 scale, run with
+identical seeds/protocol (sim_reconciliation CLI via
 scripts/run_waterfall.py --irregular; CSV schema ``EsN0dB,ber,fer,
 iters`` — reference: sims/sim_reconciliation.py:96-102).  The figure
-shows the round-4 result: the ROW-GROUPED VMEM-resident kernel
-(ops/pallas_kernels._grouped_row — the path that makes wide irregular
-check rows fit the register budget) is BER/FER-identical to the dense
-roll path at every grid point while running the sweep ~2.4x faster
-end to end (BASELINE.md "Irregular QUALITY waterfall").
+compares two decode engines on the same frames: the dense roll path and
+a row-grouped single-kernel engine that an earlier version of this
+repository carried (docs/DESIGN.md); their BER/FER agree at every grid
+point.
 
 Usage: python scripts/plot_irregular_waterfall.py \
            RESIDENT.csv DENSE.csv OUT.png
@@ -32,14 +31,14 @@ def main(res_csv, dense_csv, out_png):
         ax.semilogy(den.EsN0dB, den[col].clip(lower=1e-7), "o-",
                     label="dense roll path")
         ax.semilogy(res.EsN0dB, res[col].clip(lower=1e-7), "^--",
-                    label="row-grouped VMEM-resident (2.4x faster sweep)")
+                    label="row-grouped single-kernel engine")
         ax.set_xlabel("$E_s/N_0$ [dB]")
         ax.set_ylabel(ylab)
         ax.grid(True, which="both", alpha=0.3)
     axes[0].legend(fontsize=8)
     fig.suptitle(
         "Irregular QC-IRA rate-1/2 N=64800 (mixed check degrees 4..10), "
-        "bf16 tanh-F/B, maxiter=50 — real TPU v5e"
+        "bf16 tanh-F/B, maxiter=50"
     )
     fig.tight_layout()
     fig.savefig(out_png, dpi=130)

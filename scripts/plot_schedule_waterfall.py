@@ -1,8 +1,8 @@
 """Render the flooding vs layered schedule waterfall artifact.
 
 Consumes three sim_reconciliation CSVs (schema ``EsN0dB,ber,fer,iters`` —
-reference: sims/sim_reconciliation.py:96-102) measured on the real TPU
-with identical seeds/code/maxiter:
+reference: sims/sim_reconciliation.py:96-102) run with identical
+seeds/code/maxiter:
 
   sum-product flooding (the reference's math + schedule),
   min-sum flooding, and min-sum layered (--schedule layered)
@@ -46,7 +46,7 @@ def main(sp_csv, ms_csv, lay_csv, out_png):
     axes[0].legend(fontsize=8)
     fig.suptitle(
         "Softening reverse reconciliation, QC(3,6) N=64800 rate-1/2, "
-        "maxiter=50, 1024 frames/point, TPU v5e", fontsize=10,
+        "maxiter=50, 1024 frames/point", fontsize=10,
     )
     fig.tight_layout()
     fig.savefig(out_png, dpi=120)

@@ -1,10 +1,11 @@
 """Render the sum-product ENGINE comparison waterfall artifact.
 
-Sum-product decode engines measured on the real TPU at DVB-S2 scale
+Sum-product decode engines run at DVB-S2 scale
 with identical seeds/code/protocol (sim_reconciliation CLI sweeps,
 schema ``EsN0dB,ber,fer,iters`` — reference: sims/sim_reconciliation.py:
 96-102).  Two facts in one figure: (1) at bf16 the dense phi-form path
-and the 1.4x-faster VMEM-resident tanh-F/B kernel are BER/FER-IDENTICAL
+and a single-kernel tanh-F/B engine (an earlier version of this
+repository, docs/DESIGN.md) are BER/FER-IDENTICAL
 at every grid point (knee FER 0.584 both — the engines share the bf16
 rounding that dominates the error budget); (2) the bf16-vs-float32
 message-storage cost itself is visible and small: knee FER 0.58 vs
@@ -14,8 +15,8 @@ Usage: python scripts/plot_sumproduct_engines_waterfall.py \
            SP_BF16.csv FB_RES.csv SP_F32.csv OUT.png [HYBRID.csv]
 
 The optional HYBRID.csv overlays the f32-totals/bf16-messages resident
-hybrid (--totals-dtype float32) — measured knee-NEUTRAL vs bf16
-(BASELINE.md round 4: the knee cost is message rounding, not totals).
+hybrid (--totals-dtype float32) — knee-NEUTRAL vs bf16 (the knee cost
+is message rounding, not totals).
 """
 
 import sys
@@ -37,19 +38,19 @@ def main(sp_csv, fb_csv, f32_csv, out_png, hybrid_csv=None):
         ax.semilogy(sp.EsN0dB, sp[col].clip(lower=1e-7), "o-",
                     label="dense, phi form, bf16")
         ax.semilogy(fb.EsN0dB, fb[col].clip(lower=1e-7), "^-.",
-                    label="VMEM-resident, tanh-F/B, bf16 (1.4x faster)")
+                    label="single-kernel, tanh-F/B, bf16")
         ax.semilogy(f32.EsN0dB, f32[col].clip(lower=1e-7), "s--",
                     label="dense, phi form, float32")
         if hy is not None:
             ax.semilogy(hy.EsN0dB, hy[col].clip(lower=1e-7), "x:",
-                        label="resident, f32-totals hybrid (knee-neutral)")
+                        label="single-kernel, f32-totals hybrid (knee-neutral)")
         ax.set_xlabel("$E_s/N_0$ [dB]")
         ax.set_ylabel(ylab)
         ax.grid(True, which="both", alpha=0.3)
     axes[0].legend(fontsize=8)
     fig.suptitle(
         "Sum-product decode engines: softening reverse reconciliation, "
-        "QC(3,6) N=64800 rate-1/2, maxiter=50, TPU v5e", fontsize=10,
+        "QC(3,6) N=64800 rate-1/2, maxiter=50", fontsize=10,
     )
     fig.tight_layout()
     fig.savefig(out_png, dpi=120)

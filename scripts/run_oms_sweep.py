@@ -1,19 +1,19 @@
 """Min-sum (alpha, beta) tuning grid at the DVB-S2 waterfall knee.
 
-VERDICT r3 item 10 / DESIGN lever 6: a density-evolution-style empirical
+A density-evolution-style empirical
 grid over the normalized/offset min-sum knobs, measured where it matters —
 the knee points (3.5 / 3.75 dB) of the standard QC(3,6) N=64800 benchmark
 code — journaled one JSON line per (alpha, beta) so an interrupted sweep
 resumes for free.  Each config bakes its constants into the compiled round
-(alpha/beta changes recompile, BASELINE.md), so the grid costs one compile
+(alpha/beta changes recompile), so the grid costs one compile
 per config; both SNR points ride the same program.
 
 Reference for the tuning surface: qamreconciliation/decoder.pyx:322-369
-(the reference's check node is exact sum-product only; OMS/NMS is a TPU
+(the reference's check node is exact sum-product only; OMS/NMS is an
 extension).
 
-Usage (one TPU experiment at a time, under timeout, in background):
-    python scripts/run_oms_sweep.py --out docs/img/oms_grid.jsonl
+Usage:
+    python scripts/run_oms_sweep.py --out oms_grid.jsonl
 """
 
 import argparse
@@ -27,7 +27,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="docs/img/oms_grid.jsonl")
+    ap.add_argument("--out", default="oms_grid.jsonl")
     ap.add_argument("--alphas", type=float, nargs="+",
                     default=[0.75, 13.0 / 16.0, 0.875, 1.0])
     ap.add_argument("--betas", type=float, nargs="+",
@@ -36,16 +36,14 @@ def main():
     ap.add_argument("--simloops", type=int, default=1024)
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--maxiter", type=int, default=50)
-    ap.add_argument("--resident", action="store_true",
-                    help="run the grid on the VMEM-resident min-sum kernel")
     args = ap.parse_args()
 
     import numpy as np
 
-    from qamreconciliation_tpu.models.qc_decoder import (
+    from qamreconciliation_jax.models.qc_decoder import (
         make_qc_ldpc, save_qc_csv,
     )
-    from qamreconciliation_tpu.sims import sim_reconciliation as sr
+    from qamreconciliation_jax.sims import sim_reconciliation as sr
 
     z = 1800
     base, _, _ = make_qc_ldpc(36, z, dv=3, dc=6, seed=12345)
@@ -78,15 +76,9 @@ def main():
                 "--check-rule", "minsum",
                 "--minsum-alpha", str(a), "--minsum-beta", str(b),
                 "--dtype", "bfloat16"]
-        if args.resident:
-            argv.append("--resident")
-        sr.main(argv)
-        import pandas as pd
-
-        df = pd.read_csv(out_csv)
-        rec = {"alpha": round(a, 6), "beta": round(b, 6),
-               "resident": bool(args.resident)}
-        for _, row in df.iterrows():
+        table = sr.main(argv)
+        rec = {"alpha": round(a, 6), "beta": round(b, 6)}
+        for row in table:
             tag = f"{row['EsN0dB']:g}dB"
             rec[f"fer@{tag}"] = float(row["fer"])
             rec[f"ber@{tag}"] = float(row["ber"])

@@ -1,11 +1,10 @@
-"""Round-5 campaign 5: DVB-S2 standard-construction code artifacts
-(VERDICT r4 item 2 / missing-1).
+"""DVB-S2 standard-construction code artifacts.
 
-One process, three measurements on the models/dvbs2.py codes (synthetic
-Annex-B-structure tables — provenance note in BASELINE.md round 5):
+One process, three decoding-quality measurements on the models/dvbs2.py
+codes (structure-exact synthetic Annex-B tables, see models/dvbs2.py):
 
-  1. rate-1/2 waterfall (full-wrap z=360 QC base, resident tanh-F/B
-     bf16, 1024 frames/point) -> docs/img/wf_dvbs2_12.csv;
+  1. rate-1/2 waterfall (full-wrap z=360 QC base, tanh-F/B bf16, 1024
+     frames/point) -> docs/img/wf_dvbs2_12.csv;
   2. full-wrap QC vs exact-H equivalence: the QC fast path adds ONE
      edge to check (0,0) of ~2e5 (models/dvbs2.to_qc_base); FER/BER at
      a waterfall point, same seeds, QC-full vs exact-H generic decode;
@@ -37,25 +36,12 @@ def main():
     ap.add_argument("--steps", default="wf,equiv,bsc")
     args = ap.parse_args()
 
-    import jax
-
-    if os.environ.get("JAX_PLATFORMS", "").strip() == "cpu":
-        jax.config.update("jax_platforms", "cpu")
-
-    import numpy as np
-    import jax.numpy as jnp
-
-    t0 = time.perf_counter()
-    np.asarray(jnp.zeros((8, 8)) + 1)
-    print(f"warmup {time.perf_counter() - t0:.1f}s", file=sys.stderr,
-          flush=True)
-
-    from qamreconciliation_tpu.models.dvbs2 import (
+    from qamreconciliation_jax.models.dvbs2 import (
         Z, expanded_edges, make_table, to_qc_base,
     )
-    from qamreconciliation_tpu.models.qc_decoder import save_qc_csv
-    from qamreconciliation_tpu.utils.edgefile import save_edge_csv
-    from qamreconciliation_tpu.sims import sim_bsc, sim_reconciliation
+    from qamreconciliation_jax.models.qc_decoder import save_qc_csv
+    from qamreconciliation_jax.utils.edgefile import save_edge_csv
+    from qamreconciliation_jax.sims import sim_bsc, sim_reconciliation
 
     steps = args.steps.split(",")
     tmp = tempfile.gettempdir()
@@ -63,42 +49,23 @@ def main():
     qc12 = os.path.join(tmp, "dvbs2_12_qc.csv")
     save_qc_csv(qc12, to_qc_base(t12, wrap="full"), Z)
 
-    # The rate-1/2 standard code is ~17% bigger than the IRA stand-in
-    # (630 base edges vs 539: dv=8 info columns + uniform dc=7) — the
-    # ungrouped resident kernel overflows VMEM by ~12 MB at B=128, so
-    # the resident attempt pins a row-group cap of 4 (bounds per-block
-    # temporaries); any failure falls back to the dense tanh-F/B path.
-    res_variants = (
-        ("resident-rg4", ["--resident", "--resident-rowgroup", "4"]),
-        ("dense", []),
-    )
-
     if "wf" in steps:
         out_csv = os.path.join(REPO, "docs/img/wf_dvbs2_12.csv")
-        for tag, extra in res_variants:
-            t0 = time.perf_counter()
-            try:
-                sim_reconciliation.main([
-                    qc12, "--qc", "--out", out_csv,
-                    "--snr", str(args.snr[0]), str(args.snr[1]),
-                    "--nsnr", str(args.nsnr),
-                    "--simloops", str(args.simloops),
-                    "--batch", str(args.batch),
-                    "--maxiter", str(args.maxiter),
-                    "--ferr-count-min", "1000000000",
-                    "--dtype", "bfloat16", "--check-phi", "tanhfb",
-                ] + extra)
-            except Exception as e:
-                print(json.dumps({
-                    "step": "wf_dvbs2_12", "engine": tag,
-                    "error": f"{type(e).__name__}: {e}"[:200],
-                }), flush=True)
-                continue
-            print(json.dumps({
-                "step": "wf_dvbs2_12", "csv": out_csv, "engine": tag,
-                "wall_s": round(time.perf_counter() - t0, 1),
-            }), flush=True)
-            break
+        t0 = time.perf_counter()
+        sim_reconciliation.main([
+            qc12, "--qc", "--out", out_csv,
+            "--snr", str(args.snr[0]), str(args.snr[1]),
+            "--nsnr", str(args.nsnr),
+            "--simloops", str(args.simloops),
+            "--batch", str(args.batch),
+            "--maxiter", str(args.maxiter),
+            "--ferr-count-min", "1000000000",
+            "--dtype", "bfloat16", "--check-phi", "tanhfb",
+        ])
+        print(json.dumps({
+            "step": "wf_dvbs2_12", "csv": out_csv,
+            "wall_s": round(time.perf_counter() - t0, 1),
+        }), flush=True)
 
     if "equiv" in steps:
         # same softening protocol, one SNR point, QC-full vs exact-H
@@ -117,24 +84,17 @@ def main():
                 argv_extra[0] = p
             out_csv = os.path.join(tmp, f"dvbs2_equiv_{tag}.csv")
             t0 = time.perf_counter()
-            try:
-                sim_reconciliation.main(argv_extra + [
-                    "--out", out_csv,
-                    "--snr", str(args.equiv_snr), str(args.equiv_snr),
-                    "--nsnr", "1", "--simloops", str(args.simloops),
-                    "--batch", str(args.batch),
-                    "--maxiter", str(args.maxiter),
-                    "--ferr-count-min", "1000000000",
-                ])
-                import pandas as pd
-
-                row = pd.read_csv(out_csv).iloc[0]
-                res[tag] = {"fer": float(row["fer"]),
-                            "ber": float(row["ber"]),
-                            "iters": float(row["iters"]),
-                            "wall_s": round(time.perf_counter() - t0, 1)}
-            except Exception as e:
-                res[tag] = {"error": f"{type(e).__name__}: {e}"[:300]}
+            row = sim_reconciliation.main(argv_extra + [
+                "--out", out_csv,
+                "--snr", str(args.equiv_snr), str(args.equiv_snr),
+                "--nsnr", "1", "--simloops", str(args.simloops),
+                "--batch", str(args.batch),
+                "--maxiter", str(args.maxiter),
+                "--ferr-count-min", "1000000000",
+            ])[0]
+            res[tag] = {"fer": float(row["fer"]), "ber": float(row["ber"]),
+                        "iters": float(row["iters"]),
+                        "wall_s": round(time.perf_counter() - t0, 1)}
         print(json.dumps({"step": "wrap_equivalence",
                           "snr_dB": args.equiv_snr, **res}), flush=True)
 

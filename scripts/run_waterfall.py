@@ -1,14 +1,14 @@
-"""DVB-S2-scale waterfall/knee runner for the real TPU (one CLI sweep).
+"""DVB-S2-scale waterfall/knee runner (one CLI sweep).
 
 Generates the standard QC(3,6) N=64800 rate-1/2 benchmark code (same
-construction/seed as bench.py and scripts/probe_decode.py) into a temp CSV,
+construction/seed as bench.py) into a temp CSV,
 then forwards every remaining flag to the sim_reconciliation CLI — the
-round-3/4 waterfall artifacts (docs/img/wf_*.csv) are produced this way so
+waterfall CSVs in docs/img/wf_*.csv are produced this way so
 knee-FER comparisons share code, seeds, and protocol exactly.
 
-Usage (one TPU experiment at a time, under timeout, in background):
+Usage:
     python scripts/run_waterfall.py OUT.CSV --snr 3.0 4.25 --nsnr 6 \
-        --simloops 1024 --batch 128 --maxiter 50 --resident \
+        --simloops 1024 --batch 128 --maxiter 50 \
         --check-phi tanhfb --dtype bfloat16
 (--qc and --out are added automatically; --irregular swaps in the QC-IRA
 mixed-degree code from make_qc_ira at the same N.)
@@ -24,7 +24,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main(argv):
     out = argv[0]
     rest = list(argv[1:])
-    from qamreconciliation_tpu.models.qc_decoder import (
+    from qamreconciliation_jax.models.qc_decoder import (
         make_qc_ira, make_qc_ldpc, save_qc_csv,
     )
 
@@ -41,7 +41,7 @@ def main(argv):
         k = rest.index("--dvbs2")
         rate = rest[k + 1]
         del rest[k:k + 2]
-        from qamreconciliation_tpu.models.dvbs2 import (
+        from qamreconciliation_jax.models.dvbs2 import (
             Z, make_table, to_qc_base,
         )
 
@@ -50,7 +50,7 @@ def main(argv):
         name = f"dvbs2_{rate.replace('/', '')}_qc.csv"
         code_csv = os.path.join(tempfile.gettempdir(), name)
         save_qc_csv(code_csv, base, z)
-        from qamreconciliation_tpu.sims import sim_reconciliation as sr
+        from qamreconciliation_jax.sims import sim_reconciliation as sr
 
         sr.main([code_csv, "--qc", "--out", out] + rest)
         return
@@ -73,7 +73,7 @@ def main(argv):
     code_csv = os.path.join(tempfile.gettempdir(), name)
     save_qc_csv(code_csv, base, z)
 
-    from qamreconciliation_tpu.sims import sim_reconciliation as sr
+    from qamreconciliation_jax.sims import sim_reconciliation as sr
 
     sr.main([code_csv, "--qc", "--out", out] + rest)
 

@@ -3,7 +3,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from qamreconciliation_tpu import PAMAlphabet
+from qamreconciliation_jax import PAMAlphabet
 
 
 def test_uniform_constellation_geometry():

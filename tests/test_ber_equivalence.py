@@ -1,6 +1,6 @@
 """End-to-end BER/FER statistical equivalence (SURVEY.md §4 test tier).
 
-The batched TPU engine and the independent float64 oracle chain
+The batched JAX engine and the independent float64 oracle chain
 (numpy softening pipeline -> native C++ scalar decoder) simulate the same
 (code, alphabet, SNR) configuration with different RNGs; their BER estimates
 must agree within joint Monte-Carlo error bars.
@@ -12,14 +12,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from qamreconciliation_tpu import Decoder, Matrix, PAMAlphabet
-from qamreconciliation_tpu.models.noisemapper import NoiseMapper
-from qamreconciliation_tpu.sims.engine import ReconciliationEngine
-from qamreconciliation_tpu.utils import make_regular_ldpc
-from qamreconciliation_tpu.utils.reference_np import softening_frames_np
+from qamreconciliation_jax import Decoder, Matrix, PAMAlphabet
+from qamreconciliation_jax.models.noisemapper import NoiseMapper
+from qamreconciliation_jax.sims.engine import ReconciliationEngine
+from qamreconciliation_jax.utils import make_regular_ldpc
+from qamreconciliation_jax.utils.reference_np import softening_frames_np
 
 graphcore = pytest.importorskip(
-    "qamreconciliation_tpu._graphcore",
+    "qamreconciliation_jax._graphcore",
     reason="no C++ toolchain on this host",
 )
 

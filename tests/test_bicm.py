@@ -8,7 +8,7 @@ reference: qamreconciliation/bicm.pyx:26-41, re-derived here).
 import numpy as np
 import pytest
 
-from qamreconciliation_tpu.models import bicm
+from qamreconciliation_jax.models import bicm
 
 
 def _recursive_gray(log_order: int) -> np.ndarray:

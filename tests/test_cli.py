@@ -6,7 +6,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from qamreconciliation_tpu.utils import make_regular_ldpc, save_edge_csv
+from qamreconciliation_jax.utils import make_regular_ldpc, save_edge_csv
 
 
 @pytest.fixture(scope="module")
@@ -18,7 +18,7 @@ def edgefile(tmp_path_factory):
 
 
 def test_sim_reconciliation_csv_schema(edgefile, tmp_path):
-    from qamreconciliation_tpu.sims import sim_reconciliation
+    from qamreconciliation_jax.sims import sim_reconciliation
 
     out = str(tmp_path / "r.csv")
     sim_reconciliation.main([
@@ -33,7 +33,7 @@ def test_sim_reconciliation_csv_schema(edgefile, tmp_path):
 
 
 def test_sim_reconciliation_modes(edgefile, tmp_path):
-    from qamreconciliation_tpu.sims import sim_reconciliation
+    from qamreconciliation_jax.sims import sim_reconciliation
 
     for extra in (["--hard"], ["--direct"], ["--configuration-base"]):
         out = str(tmp_path / f"m{extra[0][2:4]}.csv")
@@ -46,8 +46,8 @@ def test_sim_reconciliation_modes(edgefile, tmp_path):
 
 
 def test_sim_reconciliation_resume(edgefile, tmp_path):
-    from qamreconciliation_tpu.sims import sim_reconciliation
-    from qamreconciliation_tpu.utils.checkpoint import SweepState
+    from qamreconciliation_jax.sims import sim_reconciliation
+    from qamreconciliation_jax.utils.checkpoint import SweepState
 
     out = str(tmp_path / "resume.csv")
     # pre-complete the first point with sentinel values
@@ -58,12 +58,12 @@ def test_sim_reconciliation_resume(edgefile, tmp_path):
         "--snr", "4", "8", "--nsnr", "2", "--batch", "32",
         "--dtype", "float64", "--resume",
     ])
-    assert df.ber.iloc[0] == 0.123  # first point taken from the journal
+    assert df.ber[0] == 0.123  # first point taken from the journal
     assert not os.path.exists(out + ".partial.jsonl")  # cleaned up
 
 
 def test_sim_bsc(edgefile, tmp_path):
-    from qamreconciliation_tpu.sims import sim_bsc
+    from qamreconciliation_jax.sims import sim_bsc
 
     out = str(tmp_path / "bsc.csv")
     df = sim_bsc.main([
@@ -78,10 +78,10 @@ def test_sim_bsc(edgefile, tmp_path):
 
 def test_sim_bsc_qc(tmp_path):
     """--qc on the BSC sweep: QC base-edge CSV drives the circulant-roll
-    decoder + roll syndromes through the BitChannelEngine (TPU extension;
+    decoder + roll syndromes through the BitChannelEngine (an extension;
     reference sim_bsc.py reads expanded edge lists only)."""
-    from qamreconciliation_tpu.models.qc_decoder import make_qc_ldpc, save_qc_csv
-    from qamreconciliation_tpu.sims import sim_bsc
+    from qamreconciliation_jax.models.qc_decoder import make_qc_ldpc, save_qc_csv
+    from qamreconciliation_jax.sims import sim_bsc
 
     qcfile = str(tmp_path / "qc.csv")
     base, vid, cid = make_qc_ldpc(12, 8, dv=3, dc=6, seed=3)
@@ -100,9 +100,9 @@ def test_sim_bsc_qc(tmp_path):
 def test_sim_bsc_lift_qc(tmp_path):
     """--lift-qc detects circulant structure in an EXPANDED edge CSV and
     decodes with the roll decoder (real standards ship expanded lists)."""
-    from qamreconciliation_tpu.models.qc_decoder import make_qc_ldpc
-    from qamreconciliation_tpu.sims import sim_bsc
-    from qamreconciliation_tpu.utils.edgefile import save_edge_csv
+    from qamreconciliation_jax.models.qc_decoder import make_qc_ldpc
+    from qamreconciliation_jax.sims import sim_bsc
+    from qamreconciliation_jax.utils.edgefile import save_edge_csv
 
     base, vid, cid = make_qc_ldpc(12, 8, dv=3, dc=6, seed=3)
     expanded = str(tmp_path / "expanded.csv")
@@ -119,8 +119,8 @@ def test_sim_bsc_lift_qc(tmp_path):
     # the lift really engaged (not the generic-decoder fallback)
     import argparse
 
-    from qamreconciliation_tpu.models.qc_decoder import QCDecoder
-    from qamreconciliation_tpu.sims.common import load_decoder
+    from qamreconciliation_jax.models.qc_decoder import QCDecoder
+    from qamreconciliation_jax.sims.common import load_decoder
 
     ns = argparse.Namespace(edgefile=expanded, qc=False, lift_qc=True,
                             dtype="float32", check_rule="sumproduct",
@@ -131,8 +131,8 @@ def test_sim_bsc_lift_qc(tmp_path):
 
 def test_sim_decode_qc(tmp_path):
     """--qc on the BI-AWGN sweep (soft and hard LLR flavors)."""
-    from qamreconciliation_tpu.models.qc_decoder import make_qc_ldpc, save_qc_csv
-    from qamreconciliation_tpu.sims import sim_decode
+    from qamreconciliation_jax.models.qc_decoder import make_qc_ldpc, save_qc_csv
+    from qamreconciliation_jax.sims import sim_decode
 
     qcfile = str(tmp_path / "qc.csv")
     base, vid, cid = make_qc_ldpc(12, 8, dv=3, dc=6, seed=3)
@@ -148,7 +148,7 @@ def test_sim_decode_qc(tmp_path):
 
 
 def test_sim_decode_and_direct(edgefile, tmp_path):
-    from qamreconciliation_tpu.sims import sim_decode, sim_direct
+    from qamreconciliation_jax.sims import sim_decode, sim_direct
 
     out1 = str(tmp_path / "dec.csv")
     df1 = sim_decode.main([
@@ -156,7 +156,7 @@ def test_sim_decode_and_direct(edgefile, tmp_path):
         "--snr", "3", "3", "--nsnr", "1", "--batch", "32",
         "--dtype", "float64",
     ])
-    assert list(df1.columns) == ["EbN0dB", "ber", "fer", "iters"]
+    assert list(df1.dtype.names) == ["EbN0dB", "ber", "fer", "iters"]
 
     out2 = str(tmp_path / "dir.csv")
     df2 = sim_direct.main([
@@ -165,46 +165,46 @@ def test_sim_decode_and_direct(edgefile, tmp_path):
         "--dtype", "float64", "--hard",
     ])
     # reference quirk: sim_direct's SNR column is named EsN0dB
-    assert list(df2.columns) == ["EsN0dB", "ber", "fer", "iters"]
+    assert list(df2.dtype.names) == ["EsN0dB", "ber", "fer", "iters"]
 
 
 def test_sim_montecarlo_information(tmp_path):
-    from qamreconciliation_tpu.sims import sim_montecarlo_information as smi
+    from qamreconciliation_jax.sims import sim_montecarlo_information as smi
 
     out = str(tmp_path / "mi.csv")
     df = smi.main([
         "--out", out, "--snr", "0", "5", "--nsnr", "2", "--niters", "2",
         "--samples-per-iter", "512", "--dtype", "float64", "--gnuplot",
     ])
-    assert list(df.columns) == ["EsN0dB", "I(X;Xhat)", "I(X;Y)", "I(N,X;Xhat)"]
+    assert list(df.dtype.names) == ["EsN0dB", "I(X;Xhat)", "I(X;Y)", "I(N,X;Xhat)"]
     assert os.path.exists(out + ".gnuplot")
 
 
 def test_sim_mutual_information_base_scheme(tmp_path):
-    from qamreconciliation_tpu.sims import (
+    from qamreconciliation_jax.sims import (
         sim_mutual_information_base_scheme as smib,
     )
 
     out = str(tmp_path / "mib.csv")
     df = smib.main(["--out", out, "--snr", "3", "3", "--nsnr", "1"])
-    assert list(df.columns)[0] == "EsN0dB"
-    assert len(df.columns) == 7
-    assert df["I(X;Y)"].iloc[0] > df["I(X;Xhat)"].iloc[0]
+    assert list(df.dtype.names)[0] == "EsN0dB"
+    assert len(df.dtype.names) == 7
+    assert df["I(X;Y)"][0] > df["I(X;Xhat)"][0]
 
 
 def test_sim_mutual_information_compare_signs(tmp_path):
-    from qamreconciliation_tpu.sims import (
+    from qamreconciliation_jax.sims import (
         sim_mutual_information_compare_signs as smics,
     )
 
     out = str(tmp_path / "cs.csv")
     df = smics.main(["--out", out, "--snr", "3", "3", "--nsnr", "1"])
     # M=4: config_count = 2^1 * (2^2+1) = 10 configs + the SNR column
-    assert len(df.columns) == 11
+    assert len(df.dtype.names) == 11
     # the alternating config should not be worse than the base config
     base_col = "I(X,N;Xhat)_0"
     alt_col = "I(X,N;Xhat)_10"  # 0b1010 = alternate [0,1,0,1]
-    assert df[alt_col].iloc[0] >= df[base_col].iloc[0] - 1e-9
+    assert df[alt_col][0] >= df[base_col][0] - 1e-9
 
 
 def test_sim_compare_signs_montecarlo_batched_resume(tmp_path):
@@ -214,21 +214,21 @@ def test_sim_compare_signs_montecarlo_batched_resume(tmp_path):
     import jax
     import numpy as np
 
-    from qamreconciliation_tpu.models.alphabet import PAMAlphabet
-    from qamreconciliation_tpu.models.mutual_information import (
+    from qamreconciliation_jax.models.alphabet import PAMAlphabet
+    from qamreconciliation_jax.models.mutual_information import (
         P_xhat, montecarlo_information,
     )
-    from qamreconciliation_tpu.models.noisemapper import NoiseMapper
-    from qamreconciliation_tpu.sims import (
+    from qamreconciliation_jax.models.noisemapper import NoiseMapper
+    from qamreconciliation_jax.sims import (
         sim_mutual_information_compare_signs as smics,
     )
-    from qamreconciliation_tpu.utils.checkpoint import SweepState
+    from qamreconciliation_jax.utils.checkpoint import SweepState
 
     out = str(tmp_path / "csmc.csv")
     args = ["--out", out, "--snr", "4", "4", "--nsnr", "1", "--montecarlo",
             "--nloops", "8", "--nmontecarlo", "4096", "--config-chunk", "3"]
     df = smics.main(args)
-    assert len(df.columns) == 11
+    assert len(df.dtype.names) == 11
 
     # statistical agreement with the sequential estimator on the base config
     pa = PAMAlphabet(2, 2)
@@ -243,14 +243,14 @@ def test_sim_compare_signs_montecarlo_batched_resume(tmp_path):
         )[2]
         for ln in range(8)
     ])
-    assert abs(df["I(X,N;Xhat)_0"].iloc[0] - seq) < 0.05
+    assert abs(df["I(X,N;Xhat)_0"][0] - seq) < 0.05
 
     # resume: pre-record a sentinel row and check it is honored
     state = SweepState(out)
     state.record(4.0, dict(values=[float(k) for k in range(10)]))
     df2 = smics.main(args + ["--resume"])
-    assert df2["I(X,N;Xhat)_0"].iloc[0] == 0.0
-    assert df2["I(X,N;Xhat)_12"].iloc[0] == 9.0
+    assert df2["I(X,N;Xhat)_0"][0] == 0.0
+    assert df2["I(X,N;Xhat)_12"][0] == 9.0
 
 
 def test_sim_to_display_schema_roundtrip(tmp_path):
@@ -258,8 +258,8 @@ def test_sim_to_display_schema_roundtrip(tmp_path):
     import matplotlib
 
     matplotlib.use("Agg")
-    from qamreconciliation_tpu.sims import sim_bsc, display_bsc
-    from qamreconciliation_tpu.utils.edgefile import make_regular_ldpc, save_edge_csv
+    from qamreconciliation_jax.sims import sim_bsc, display_bsc
+    from qamreconciliation_jax.utils.edgefile import make_regular_ldpc, save_edge_csv
 
     code = str(tmp_path / "code.csv")
     vid, cid = make_regular_ldpc(120, 3, 6, seed=3)
@@ -271,3 +271,28 @@ def test_sim_to_display_schema_roundtrip(tmp_path):
     png = str(tmp_path / "bsc.png")
     display_bsc.main(["--file", out, "sweep", "--rate", "0.5", "--save", png])
     assert (tmp_path / "bsc.png").stat().st_size > 0
+
+
+def test_sweep_csv_reads_back_identically(tmp_path):
+    """The sweep CSV written without pandas has the reference's
+    DataFrame.to_csv layout byte for byte, and every value reads back
+    exactly (shortest round-trip float text)."""
+    import csv
+
+    from qamreconciliation_jax.sims.common import write_csv
+
+    cols = ("EsN0dB", "ber", "fer", "iters")
+    rows = [(3.0, 0.0019227731963734568, 0.568359375, 46.39718309859155),
+            (3.25, 9.946469907407407e-07, 1 / 3, 37.0)]
+    out = tmp_path / "w.csv"
+    table = write_csv(str(out), cols, rows)
+    assert list(table.dtype.names) == list(cols) and len(table) == 2
+    text = out.read_text()
+    assert text == pd.DataFrame(rows, columns=list(cols)).to_csv()
+    with open(out, newline="") as f:
+        back = list(csv.reader(f))
+    assert back[0] == [""] + list(cols)
+    for i, (line, row) in enumerate(zip(back[1:], rows)):
+        assert line[0] == str(i)
+        assert tuple(float(v) for v in line[1:]) == row
+        assert tuple(table[i]) == row

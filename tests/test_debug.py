@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import pytest
 from jax.experimental import checkify
 
-from qamreconciliation_tpu.utils.debug import with_numeric_checks
+from qamreconciliation_jax.utils.debug import with_numeric_checks
 
 
 def test_clean_function_passes():
@@ -22,8 +22,8 @@ def test_nan_production_raises():
 
 def test_decoder_round_checks_clean():
     """The BP decode pipeline is NaN-free under float checks."""
-    from qamreconciliation_tpu import Decoder, Matrix
-    from qamreconciliation_tpu.utils import make_regular_ldpc
+    from qamreconciliation_jax import Decoder, Matrix
+    from qamreconciliation_jax.utils import make_regular_ldpc
 
     vid, cid = make_regular_ldpc(96, 3, 6, seed=2)
     dec = Decoder(vid, cid, dtype=jnp.float32)

@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from qamreconciliation_tpu import Decoder, Matrix
-from qamreconciliation_tpu.ops.boxplus import box_plus, phi_llr
-from qamreconciliation_tpu.utils import load_edge_csv, make_regular_ldpc
+from qamreconciliation_jax import Decoder, Matrix
+from qamreconciliation_jax.ops.boxplus import box_plus, phi_llr
+from qamreconciliation_jax.utils import load_edge_csv, make_regular_ldpc
 
 HAMMING_CSV = os.path.join(os.path.dirname(__file__), "data", "hamming_7-4.csv")
 
@@ -158,7 +158,7 @@ def test_phi_check_update_equals_tanh_form():
     for synd_bit in (0, 1):
         out = d.process_check_node(0, np.array([synd_bit]), np.zeros(4), v2c)
         # batched path: run one BP iteration manually via the graph
-        from qamreconciliation_tpu.ops.boxplus import check_node_update
+        from qamreconciliation_jax.ops.boxplus import check_node_update
 
         g = d.graph
         flat = jnp.asarray(v2c, jnp.float64).reshape(-1, 1)

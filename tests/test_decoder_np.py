@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from qamreconciliation_tpu import Decoder
-from qamreconciliation_tpu.models.decoder_np import DecoderNp
-from qamreconciliation_tpu.utils import make_regular_ldpc
+from qamreconciliation_jax import Decoder
+from qamreconciliation_jax.models.decoder_np import DecoderNp
+from qamreconciliation_jax.utils import make_regular_ldpc
 
 
 @pytest.fixture(scope="module")

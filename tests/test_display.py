@@ -49,7 +49,7 @@ def mi_csv(tmp_path):
 
 
 def test_display_mi(mi_csv, tmp_path):
-    from qamreconciliation_tpu.sims import display_mi
+    from qamreconciliation_jax.sims import display_mi
 
     out = str(tmp_path / "mi.png")
     display_mi.main([mi_csv, "--rescalex", "--title", "t", "--save", out])
@@ -57,7 +57,7 @@ def test_display_mi(mi_csv, tmp_path):
 
 
 def test_display_monotonicity(mi_csv, tmp_path):
-    from qamreconciliation_tpu.sims import display_monotonicity
+    from qamreconciliation_jax.sims import display_monotonicity
 
     out = str(tmp_path / "mono.png")
     display_monotonicity.main(
@@ -67,7 +67,7 @@ def test_display_monotonicity(mi_csv, tmp_path):
 
 
 def test_display_softened(ber_csv, tmp_path):
-    from qamreconciliation_tpu.sims import display_softened
+    from qamreconciliation_jax.sims import display_softened
 
     out = str(tmp_path / "soft.png")
     display_softened.main([
@@ -78,7 +78,7 @@ def test_display_softened(ber_csv, tmp_path):
 
 
 def test_display_softened_uncoded_floor_decreasing():
-    from qamreconciliation_tpu.sims.display_softened import uncoded_ber
+    from qamreconciliation_jax.sims.display_softened import uncoded_ber
 
     snr = np.array([-5.0, 0.0, 5.0, 10.0, 15.0])
     p_b = uncoded_ber(2, snr)
@@ -87,17 +87,17 @@ def test_display_softened_uncoded_floor_decreasing():
 
 
 def test_display_bsc(bsc_csv, tmp_path):
-    from qamreconciliation_tpu.sims import display_bsc
+    from qamreconciliation_jax.sims import display_bsc
 
     out = str(tmp_path / "bsc.png")
     display_bsc.main([
-        "--file", bsc_csv, "tpu decoder", "--rate", "0.75", "--save", out,
+        "--file", bsc_csv, "jax decoder", "--rate", "0.75", "--save", out,
     ])
     assert (tmp_path / "bsc.png").stat().st_size > 0
 
 
 def test_display_bsc_shannon_locus_monotone():
-    from qamreconciliation_tpu.sims.display_bsc import shannon_limit_bsc
+    from qamreconciliation_jax.sims.display_bsc import shannon_limit_bsc
 
     f_grid, p_b_grid = shannon_limit_bsc(0.75, [0.01, 0.1], n=20)
     # A rate-R code tolerating a larger residual BER tolerates more raw flips
@@ -106,7 +106,7 @@ def test_display_bsc_shannon_locus_monotone():
 
 
 def test_display_biawgn(ber_csv, tmp_path):
-    from qamreconciliation_tpu.sims import display_biawgn
+    from qamreconciliation_jax.sims import display_biawgn
 
     out = str(tmp_path / "biawgn.png")
     display_biawgn.main([
@@ -117,7 +117,7 @@ def test_display_biawgn(ber_csv, tmp_path):
 
 
 def test_biawgn_capacity_limits():
-    from qamreconciliation_tpu.sims.display_biawgn import biawgn_capacity
+    from qamreconciliation_jax.sims.display_biawgn import biawgn_capacity
 
     c = biawgn_capacity(np.array([1e-6, 0.1, 1.0, 10.0, 100.0]))
     assert np.all(np.diff(c) > 0)

@@ -1,7 +1,6 @@
 """DVB-S2 construction invariants (models/dvbs2.py).
 
-The environment holds no copy of the ETSI integer tables (BASELINE.md
-round 5), so these tests pin the *arithmetic* of the Annex B/C
+The repository holds no copy of the ETSI integer tables, so these tests pin the *arithmetic* of the Annex B/C
 construction — encoder/H consistency, the q-interleaved blocked
 re-indexing, the z=360 quasi-cyclic structure and its one-edge-deficient
 wrap circulant, and the standard's frame/degree-profile invariants —
@@ -12,7 +11,7 @@ consume the exact published rows via parse_address_table().
 import numpy as np
 import pytest
 
-from qamreconciliation_tpu.models.dvbs2 import (
+from qamreconciliation_jax.models.dvbs2 import (
     Z, Dvbs2Table, RATE_PROFILES, blocked_perms, encode, expanded_edges,
     make_table, parse_address_table, to_qc_base,
 )
@@ -104,7 +103,7 @@ def test_qc_structure_and_wrap_deficiency():
     for i in np.random.default_rng(0).integers(0, vid.size, 64):
         assert cells[(int(cb[i]), int(vb[i]))] == int(s[i])
     # the full-wrap expansion is detected as QC at z=360
-    from qamreconciliation_tpu.models.qc_decoder import detect_qc
+    from qamreconciliation_jax.models.qc_decoder import detect_qc
 
     vidf = np.concatenate([v * Z + k for (_, v, _) in base_full])
     cidf = np.concatenate(
@@ -144,7 +143,7 @@ def test_qcdecoder_consumes_full_wrap():
     (reference semantics: qamreconciliation/decoder.pyx:402-405)."""
     import jax.numpy as jnp
 
-    from qamreconciliation_tpu.models.qc_decoder import QCDecoder
+    from qamreconciliation_jax.models.qc_decoder import QCDecoder
 
     t = make_table("1/2", seed=11)
     base = to_qc_base(t, wrap="full")
@@ -168,7 +167,7 @@ def test_girth6_conditioning():
     >= 6) — the property the standard's published tables are selected
     for.  The detector counts collisions over (var-pair, shift-diff)
     keys across check blocks + parallel-circulant 180-offsets."""
-    from qamreconciliation_tpu.models.dvbs2 import four_cycle_count
+    from qamreconciliation_jax.models.dvbs2 import four_cycle_count
 
     for rate in ("1/2", "3/4", "2/3", "5/6"):
         t = make_table(rate, seed=0)
@@ -182,7 +181,7 @@ def test_girth6_conditioning():
 def test_girth8_conditioning_opt_in():
     """girth=8 (opt-in, exceeds the standard's own 4-cycle-freeness)
     breaks every block-level 6-cycle witness too."""
-    from qamreconciliation_tpu.models.dvbs2 import (
+    from qamreconciliation_jax.models.dvbs2 import (
         four_cycle_count, six_cycle_witnesses,
     )
 

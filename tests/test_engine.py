@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from qamreconciliation_tpu import Decoder, Matrix, PAMAlphabet
-from qamreconciliation_tpu.sims import ReconciliationEngine
-from qamreconciliation_tpu.utils import make_regular_ldpc
+from qamreconciliation_jax import Decoder, Matrix, PAMAlphabet
+from qamreconciliation_jax.sims import ReconciliationEngine
+from qamreconciliation_jax.utils import make_regular_ldpc
 
 
 @pytest.fixture(scope="module")
@@ -85,9 +85,9 @@ def test_bfloat16_round_runs():
     which rejects ml_dtypes)."""
     import jax.numpy as jnp
     import numpy as np
-    from qamreconciliation_tpu import Decoder, Matrix, PAMAlphabet
-    from qamreconciliation_tpu.sims.engine import ReconciliationEngine
-    from qamreconciliation_tpu.utils import make_regular_ldpc
+    from qamreconciliation_jax import Decoder, Matrix, PAMAlphabet
+    from qamreconciliation_jax.sims.engine import ReconciliationEngine
+    from qamreconciliation_jax.utils import make_regular_ldpc
 
     vid, cid = make_regular_ldpc(120, 3, 6, seed=8)
     dec = Decoder(vid, cid, dtype=jnp.bfloat16)
@@ -104,9 +104,9 @@ def test_table_vs_interp_llr_mode_statistical_equivalence():
     """Default 'table' LLR path matches the per-sample 'interp' path within
     Monte-Carlo error at a partially-failing operating point."""
     import numpy as np
-    from qamreconciliation_tpu import Decoder, Matrix, PAMAlphabet
-    from qamreconciliation_tpu.sims.engine import ReconciliationEngine
-    from qamreconciliation_tpu.utils import make_regular_ldpc
+    from qamreconciliation_jax import Decoder, Matrix, PAMAlphabet
+    from qamreconciliation_jax.sims.engine import ReconciliationEngine
+    from qamreconciliation_jax.utils import make_regular_ldpc
 
     vid, cid = make_regular_ldpc(512, 3, 6, seed=17)
     dec = Decoder(vid, cid)
@@ -129,9 +129,9 @@ def test_bfloat16_error_counters_exact():
     guards against)."""
     import numpy as np
     import jax.numpy as jnp
-    from qamreconciliation_tpu import Decoder, Matrix, PAMAlphabet
-    from qamreconciliation_tpu.sims.engine import ReconciliationEngine
-    from qamreconciliation_tpu.utils import make_regular_ldpc
+    from qamreconciliation_jax import Decoder, Matrix, PAMAlphabet
+    from qamreconciliation_jax.sims.engine import ReconciliationEngine
+    from qamreconciliation_jax.utils import make_regular_ldpc
 
     vid, cid = make_regular_ldpc(2048, 3, 6, seed=21)
     dec = Decoder(vid, cid, dtype=jnp.bfloat16)
@@ -159,7 +159,7 @@ def test_rounds_per_dispatch_scan_equals_sequential(code):
     engR = make_engine(code, rounds_per_dispatch=3)
     assert engR.frames_per_round == 3 * eng1.frames_per_round
 
-    from qamreconciliation_tpu.models.noisemapper import NoiseMapper
+    from qamreconciliation_jax.models.noisemapper import NoiseMapper
 
     pa = eng1.pa
     N0 = pa.variance * 10 ** (-4.5 / 10) / 2
@@ -203,10 +203,10 @@ def test_int32_counter_guard(code):
 
 @pytest.mark.parametrize("bps", [1, 2, 4])
 def test_lane_flat_direct_llrs_match_reference_form(bps):
-    """y_to_lappr_gray_bits (the [S, B] lane-flat direct-mode builder,
-    VERDICT r3 item 7) is the same math as y_to_lappr_gray: per-bit values
+    """y_to_lappr_gray_bits (the [S, B] lane-flat direct-mode builder)
+    is the same math as y_to_lappr_gray: per-bit values
     agree to float64 round-off on random samples, every M."""
-    from qamreconciliation_tpu.ops.llr import (
+    from qamreconciliation_jax.ops.llr import (
         y_to_lappr_gray, y_to_lappr_gray_bits,
     )
 
@@ -232,7 +232,7 @@ def test_lane_flat_direct_llrs_finite_at_high_snr():
     Gray group's exponentials against the shared max; the lane-flat
     builder must stay FINITE (saturating), never +/-inf/NaN, and must
     agree with the reference form wherever the reference is moderate."""
-    from qamreconciliation_tpu.ops.llr import (
+    from qamreconciliation_jax.ops.llr import (
         y_to_lappr_gray, y_to_lappr_gray_bits,
     )
 

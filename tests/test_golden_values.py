@@ -1,4 +1,4 @@
-"""First-principles golden values for the softening chain (VERDICT r3 #9).
+"""First-principles golden values for the softening chain.
 
 Every other parity tier in this repo checks implementations against each
 other (jax NoiseMapper vs numpy oracle vs C++ decoder) — a shared
@@ -41,9 +41,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from qamreconciliation_tpu.models.alphabet import PAMAlphabet
-from qamreconciliation_tpu.models.noisemapper import NoiseMapper
-from qamreconciliation_tpu.utils.reference_np import softening_chain_np
+from qamreconciliation_jax.models.alphabet import PAMAlphabet
+from qamreconciliation_jax.models.noisemapper import NoiseMapper
+from qamreconciliation_jax.utils.reference_np import softening_chain_np
 
 
 # ----------------------------------------------------------------- hand math
@@ -179,7 +179,7 @@ def test_demap_llrs_match_hand_values(bps, nv, sc, ys, xs):
 
     "search" evaluates the exact inverse (Newton) — float-tight; the
     table/interp/poly modes are grid/fit approximations of the same curve
-    (BASELINE: fit error <= 2e-3 absolute) — loose tolerance.
+    (fit error <= 2e-3 absolute) — loose tolerance.
     """
     pa = PAMAlphabet(bps, 2)
     nm = NoiseMapper(pa, nv, sign_config=sc, dtype=np.float64)

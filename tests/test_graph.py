@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from qamreconciliation_tpu import Matrix
-from qamreconciliation_tpu.models.decoder import TannerGraph
-from qamreconciliation_tpu.utils import (
+from qamreconciliation_jax import Matrix
+from qamreconciliation_jax.models.decoder import TannerGraph
+from qamreconciliation_jax.utils import (
     load_edge_csv,
     save_edge_csv,
     make_regular_ldpc,

@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from qamreconciliation_tpu import Decoder, Matrix
-from qamreconciliation_tpu.parallel import make_mesh
-from qamreconciliation_tpu.parallel.graph_shard import ShardedDecoder
-from qamreconciliation_tpu.utils import make_regular_ldpc
+from qamreconciliation_jax import Decoder, Matrix
+from qamreconciliation_jax.parallel import make_mesh
+from qamreconciliation_jax.parallel.graph_shard import ShardedDecoder
+from qamreconciliation_jax.utils import make_regular_ldpc
 
 
 @pytest.fixture(scope="module", params=[240, 252])
@@ -70,8 +70,8 @@ def test_sharded_engine_sweep_matches_unsharded():
     """A softening sweep runs end-to-end with a graph-sharded decoder
     (the engine _build_decode duck-type contract) and its counters match
     the unsharded engine exactly — same seed, same frames, same stats."""
-    from qamreconciliation_tpu import PAMAlphabet
-    from qamreconciliation_tpu.sims.engine import ReconciliationEngine
+    from qamreconciliation_jax import PAMAlphabet
+    from qamreconciliation_jax.sims.engine import ReconciliationEngine
 
     vid, cid = make_regular_ldpc(240, 3, 6, seed=13)
     mesh = make_mesh(8, axis_name="gs")
@@ -102,7 +102,7 @@ def test_sharded_engine_sweep_matches_unsharded():
     dict(check_phi="tanhfb"),                    # tanh-F/B sum-product
 ])
 def test_sharded_rule_variants_match_single_device(variant):
-    """VERDICT r3 item 6: --minsum-alpha/--minsum-beta (and check_phi) must
+    """--minsum-alpha/--minsum-beta (and check_phi) must
     reach the sharded check update — sharded min-sum/tanh-F/B results match
     the single-device decoder with the SAME knobs exactly (min-sum is pure
     select arithmetic; tanhfb to float tolerance)."""
@@ -127,13 +127,13 @@ def test_sharded_rule_variants_match_single_device(variant):
 
 @pytest.mark.parametrize("irregular", [False, True])
 def test_sharded_qc_matches_single_device(irregular):
-    """z-sharded QC decoder (rolls over ICI): BIT-exact vs the single-device
+    """z-sharded QC decoder (rolls across devices): BIT-exact vs the single-device
     QCDecoder — sharding annotations change placement, not arithmetic.
     Covers regular and irregular (QC-IRA) codes."""
-    from qamreconciliation_tpu.models.qc_decoder import (
+    from qamreconciliation_jax.models.qc_decoder import (
         QCDecoder, make_qc_ira, make_qc_ldpc,
     )
-    from qamreconciliation_tpu.parallel.graph_shard import ShardedQCDecoder
+    from qamreconciliation_jax.parallel.graph_shard import ShardedQCDecoder
 
     z = 16  # divisible by the 8-way mesh
     if irregular:
@@ -141,7 +141,7 @@ def test_sharded_qc_matches_single_device(irregular):
     else:
         base, vid, cid = make_qc_ldpc(nb_v=12, z=z, dv=3, dc=6, seed=4)
     mesh = make_mesh(8, axis_name="gs")
-    dec = QCDecoder(base, z, dtype=jnp.float32, use_pallas=False)
+    dec = QCDecoder(base, z, dtype=jnp.float32)
     sdec = ShardedQCDecoder(base, z, mesh, dtype=jnp.float32)
     mat = Matrix(vid, cid)
     rng = np.random.default_rng(23)
@@ -158,27 +158,26 @@ def test_sharded_qc_matches_single_device(irregular):
 
 
 def test_sharded_qc_rejects_bad_configs():
-    from qamreconciliation_tpu.models.qc_decoder import make_qc_ldpc
-    from qamreconciliation_tpu.parallel.graph_shard import ShardedQCDecoder
+    from qamreconciliation_jax.models.qc_decoder import make_qc_ldpc
+    from qamreconciliation_jax.parallel.graph_shard import ShardedQCDecoder
 
     base, _, _ = make_qc_ldpc(nb_v=12, z=12, dv=3, dc=6, seed=4)
     mesh = make_mesh(8, axis_name="gs")
     with pytest.raises(ValueError):   # z % n_dev != 0
         ShardedQCDecoder(base, 12, mesh)
     base16, _, _ = make_qc_ldpc(nb_v=12, z=16, dv=3, dc=6, seed=4)
-    for bad in (dict(resident=True), dict(schedule="layered"),
-                dict(use_pallas=True), dict(compressed=True,
-                                            check_rule="minsum")):
+    for bad in (dict(schedule="layered"),
+                dict(compressed=True, check_rule="minsum")):
         with pytest.raises(ValueError):
             ShardedQCDecoder(base16, 16, mesh, **bad)
 
 
 def test_sharded_qc_cli_sweep(tmp_path):
     """--graph-shard + --qc on the real CLI (z-sharded roll decoder)."""
-    from qamreconciliation_tpu.models.qc_decoder import (
+    from qamreconciliation_jax.models.qc_decoder import (
         make_qc_ldpc, save_qc_csv,
     )
-    from qamreconciliation_tpu.sims import sim_reconciliation
+    from qamreconciliation_jax.sims import sim_reconciliation
 
     base, vid, cid = make_qc_ldpc(nb_v=12, z=16, dv=3, dc=6, seed=4)
     path = str(tmp_path / "qc.csv")
@@ -191,13 +190,13 @@ def test_sharded_qc_cli_sweep(tmp_path):
         "--minsum-alpha", "1.0", "--minsum-beta", "0.25",
     ])
     assert len(df) == 1
-    assert list(df.columns) == ["EsN0dB", "ber", "fer", "iters"]
+    assert list(df.dtype.names) == ["EsN0dB", "ber", "fer", "iters"]
 
 
 def test_sharded_cli_sweep(tmp_path):
     """--graph-shard on the real CLI, 8-way virtual mesh."""
-    from qamreconciliation_tpu.sims import sim_reconciliation
-    from qamreconciliation_tpu.utils import save_edge_csv
+    from qamreconciliation_jax.sims import sim_reconciliation
+    from qamreconciliation_jax.utils import save_edge_csv
 
     path = str(tmp_path / "code.csv")
     vid, cid = make_regular_ldpc(240, 3, 6, seed=13)
@@ -209,20 +208,4 @@ def test_sharded_cli_sweep(tmp_path):
         "--dtype", "float64", "--graph-shard", "--devices", "8",
     ])
     assert len(df) == 1
-    assert list(df.columns) == ["EsN0dB", "ber", "fer", "iters"]
-
-
-def test_sharded_qc_use_pallas_none_is_forced_off():
-    """Regression: an explicit use_pallas=None must not slip past the
-    guard into QCDecoder's TPU auto-resolution (which would engage the
-    non-partitioning fused Pallas check phase); only explicit True
-    errors."""
-    from qamreconciliation_tpu.models.qc_decoder import make_qc_ldpc
-    from qamreconciliation_tpu.parallel.graph_shard import ShardedQCDecoder
-
-    base, _, _ = make_qc_ldpc(6, 16, dv=3, dc=6, seed=4)
-    mesh = make_mesh(8, axis_name="gs")
-    dec = ShardedQCDecoder(base, 16, mesh, use_pallas=None)
-    assert dec.use_pallas is False
-    with pytest.raises(ValueError):
-        ShardedQCDecoder(base, 16, mesh, use_pallas=True)
+    assert list(df.dtype.names) == ["EsN0dB", "ber", "fer", "iters"]

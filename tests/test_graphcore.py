@@ -9,12 +9,12 @@ compiled decoder against the pure-Python oracle (SURVEY.md §4).
 import numpy as np
 import pytest
 
-from qamreconciliation_tpu.models.decoder import Decoder
-from qamreconciliation_tpu.models.matrix import Matrix
-from qamreconciliation_tpu.utils import edgefile
+from qamreconciliation_jax.models.decoder import Decoder
+from qamreconciliation_jax.models.matrix import Matrix
+from qamreconciliation_jax.utils import edgefile
 
 graphcore = pytest.importorskip(
-    "qamreconciliation_tpu._graphcore",
+    "qamreconciliation_jax._graphcore",
     reason="no C++ toolchain on this host",
 )
 

@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from qamreconciliation_tpu import PAMAlphabet, NoiseMapper
-from qamreconciliation_tpu.models import mutual_information as mi
+from qamreconciliation_jax import PAMAlphabet, NoiseMapper
+from qamreconciliation_jax.models import mutual_information as mi
 
 
 @pytest.fixture(scope="module")

@@ -1,4 +1,4 @@
-"""Normalized min-sum check rule (TPU extension, opt-in check_rule="minsum").
+"""Normalized min-sum check rule (extension, opt-in check_rule="minsum").
 
 The reference implements exact sum-product only
 (reference: qamreconciliation/decoder.pyx:322-369); normalized min-sum
@@ -15,7 +15,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from qamreconciliation_tpu.ops.boxplus import (
+from qamreconciliation_jax.ops.boxplus import (
     MINSUM_ALPHA,
     check_node_minsum,
     check_node_minsum_sm,
@@ -84,58 +84,36 @@ def test_minsum_checkmajor_matches_slotmajor():
     np.testing.assert_array_equal(a, np.moveaxis(b, 0, 1))
 
 
-@pytest.mark.parametrize("layout", ["qc", "generic"])
+@pytest.mark.parametrize("layout", ["qc"])
 def test_minsum_pallas_kernel_matches_xla(layout):
-    """rule='minsum' through the fused Pallas check-phase kernels
-    (interpret mode on CPU) == the XLA min-sum update + convergence test."""
+    """rule='minsum' through the fused QC check-phase kernel (interpret
+    mode on CPU) == the check-major XLA min-sum update."""
+    from qamreconciliation_jax.ops.pallas_kernels import bp_check_phase_qc
+
     rng = np.random.default_rng(3)
-    if layout == "qc":
-        from qamreconciliation_tpu.ops.pallas_kernels import bp_check_phase_qc
-
-        nb_c, dc, z, B = 3, 4, 16, 8
-        t = jnp.asarray(rng.normal(0, 3, (nb_c, dc, z, B)), jnp.float32)
-        c2v = jnp.asarray(rng.normal(0, 1, (nb_c, dc, z, B)), jnp.float32)
-        synd = jnp.asarray(rng.integers(0, 2, (nb_c, z, B)), jnp.int32)
-        out, viol = bp_check_phase_qc(
-            t, c2v, synd, interpret=True, rule="minsum", block_z=8
-        )
-        # check-major oracle on the flattened (check-block, z) node axis
-        want = check_node_minsum(
-            (t - c2v).transpose(0, 2, 1, 3).reshape(-1, dc, B),
-            synd.reshape(-1, B),
-            jnp.ones((nb_c * z, dc), jnp.float32),
-        )
-        got = np.asarray(out).transpose(0, 2, 1, 3).reshape(-1, dc, B)
-        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6,
-                                   atol=1e-7)
-    else:
-        from qamreconciliation_tpu.ops.pallas_kernels import (
-            bp_check_phase_generic,
-        )
-
-        dc, C, B = 4, 24, 8
-        t = jnp.asarray(rng.normal(0, 3, (dc, C, B)), jnp.float32)
-        c2v = jnp.asarray(rng.normal(0, 1, (dc, C, B)), jnp.float32)
-        synd = jnp.asarray(rng.integers(0, 2, (C, B)), jnp.int32)
-        mask = np.ones((dc, C), np.float32)
-        mask[-1, ::5] = 0.0
-        maskj = jnp.asarray(mask)
-        out, viol = bp_check_phase_generic(
-            t, c2v, synd, maskj, interpret=True, rule="minsum", block_c=8
-        )
-        want = check_node_minsum_sm(t - c2v, synd, maskj)
-        np.testing.assert_allclose(np.asarray(out), np.asarray(want),
-                                   rtol=1e-6, atol=1e-7)
+    nb_c, dc, z, B = 3, 4, 16, 8
+    t = jnp.asarray(rng.normal(0, 3, (nb_c, dc, z, B)), jnp.float32)
+    c2v = jnp.asarray(rng.normal(0, 1, (nb_c, dc, z, B)), jnp.float32)
+    synd = jnp.asarray(rng.integers(0, 2, (nb_c, z, B)), jnp.int32)
+    _, out = bp_check_phase_qc(t, c2v, synd, interpret=True, rule="minsum")
+    # check-major oracle on the flattened (check-block, z) node axis
+    want = check_node_minsum(
+        (t - c2v).transpose(0, 2, 1, 3).reshape(-1, dc, B),
+        synd.reshape(-1, B),
+        jnp.ones((nb_c * z, dc), jnp.float32),
+    )
+    got = np.asarray(out).transpose(0, 2, 1, 3).reshape(-1, dc, B)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=1e-7)
 
 
-def test_minsum_decodes_end_to_end():
+def test_minsum_decodes_end_to_end(fused_check):
     """Both decoders decode cleanly with check_rule='minsum' at high SNR,
-    and the QC XLA/Pallas paths agree on (success, iters)."""
-    from qamreconciliation_tpu import Decoder, Matrix, PAMAlphabet
-    from qamreconciliation_tpu.models.qc_decoder import (
+    and the QC XLA / fused-kernel paths agree on (success, iters)."""
+    from qamreconciliation_jax import Decoder, Matrix, PAMAlphabet
+    from qamreconciliation_jax.models.qc_decoder import (
         QCDecoder, make_qc_ldpc,
     )
-    from qamreconciliation_tpu.sims import ReconciliationEngine
+    from qamreconciliation_jax.sims import ReconciliationEngine
 
     vid, cid = make_regular_ldpc_cached()
     dec = Decoder(vid, cid, dtype=jnp.float64, check_rule="minsum")
@@ -151,8 +129,9 @@ def test_minsum_decodes_end_to_end():
     lappr = jnp.asarray(rng.normal(2.0, 1.0, (8, 12 * 16)), jnp.float64)
     word = jnp.zeros((8, 12 * 16), jnp.int32)
     for pall in (False, True):
-        qc = QCDecoder(base, 16, dtype=jnp.float64, use_pallas=pall,
-                       check_rule="minsum")
+        if pall:
+            fused_check()
+        qc = QCDecoder(base, 16, dtype=jnp.float64, check_rule="minsum")
         synd = qc.syndrome_from_bits(word.T).T
         s, it, fin = qc.decode_batch(lappr, synd, 20)
         if pall is False:
@@ -163,28 +142,29 @@ def test_minsum_decodes_end_to_end():
 
 
 def make_regular_ldpc_cached():
-    from qamreconciliation_tpu.utils import make_regular_ldpc
+    from qamreconciliation_jax.utils import make_regular_ldpc
 
     return make_regular_ldpc(240, 3, 6, seed=0)
 
 
 def test_check_rule_validation():
-    from qamreconciliation_tpu import Decoder
+    from qamreconciliation_jax import Decoder
 
     vid, cid = make_regular_ldpc_cached()
     with pytest.raises(ValueError, match="check_rule"):
         Decoder(vid, cid, check_rule="bogus")
 
 
-def test_offset_minsum_paths_agree():
-    """Offset min-sum (alpha=1, beta=0.4): the XLA, fused-Pallas, and
-    VMEM-resident QC paths produce bit-identical (success, iters, final),
-    and the offset actually changes the messages vs normalized min-sum."""
+def test_offset_minsum_paths_agree(fused_check):
+    """Offset min-sum (alpha=1, beta=0.4): the XLA, fused-kernel and
+    compressed-state QC paths produce bit-identical (success, iters,
+    final), and the offset actually changes the messages vs normalized
+    min-sum."""
     import numpy as np
     import jax.numpy as jnp
 
-    from qamreconciliation_tpu import Matrix
-    from qamreconciliation_tpu.models.qc_decoder import (
+    from qamreconciliation_jax import Matrix
+    from qamreconciliation_jax.models.qc_decoder import (
         QCDecoder, make_qc_ldpc,
     )
 
@@ -196,19 +176,19 @@ def test_offset_minsum_paths_agree():
     llr = (1 - 2 * word) * 3.0 + rng.normal(0, 2.0, (8, 192))
     kw = dict(dtype=jnp.float32, check_rule="minsum", minsum_alpha=1.0,
               minsum_beta=0.4)
-    xla = QCDecoder(base, 16, use_pallas=False, **kw)
-    pal = QCDecoder(base, 16, use_pallas=True, **kw)
-    res = QCDecoder(base, 16, resident=True, resident_chunk=4, **kw)
-    nrm = QCDecoder(base, 16, dtype=jnp.float32, check_rule="minsum",
-                    use_pallas=False)
-    outs = [d.decode_batch(llr, synd, 20) for d in (xla, pal, res)]
+    xla = QCDecoder(base, 16, **kw)
+    cmp_ = QCDecoder(base, 16, compressed=True, **kw)
+    nrm = QCDecoder(base, 16, dtype=jnp.float32, check_rule="minsum")
+    outs = [d.decode_batch(llr, synd, 20) for d in (xla, cmp_)]
+    s_n, i_n, f_n = nrm.decode_batch(llr, synd, 20)
+    fused_check()
+    outs.append(QCDecoder(base, 16, **kw).decode_batch(llr, synd, 20))
     for s, i, f in outs[1:]:
         np.testing.assert_array_equal(np.asarray(outs[0][0]), np.asarray(s))
         np.testing.assert_array_equal(np.asarray(outs[0][1]), np.asarray(i))
         np.testing.assert_array_equal(
             np.asarray(outs[0][2], np.float32), np.asarray(f, np.float32)
         )
-    s_n, i_n, f_n = nrm.decode_batch(llr, synd, 20)
     assert not np.array_equal(
         np.asarray(outs[0][2], np.float32), np.asarray(f_n, np.float32)
     )
@@ -217,7 +197,7 @@ def test_offset_minsum_paths_agree():
 def test_minsum_beta_validation():
     import pytest
 
-    from qamreconciliation_tpu.models.qc_decoder import (
+    from qamreconciliation_jax.models.qc_decoder import (
         QCDecoder, make_qc_ldpc,
     )
 

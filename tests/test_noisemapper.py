@@ -10,13 +10,13 @@ from scipy.special import erf
 import jax.numpy as jnp
 import pytest
 
-from qamreconciliation_tpu import (
+from qamreconciliation_jax import (
     PAMAlphabet,
     NoiseMapper,
     NoiseMapperFlipSign,
     NoiseMapperAntiFlipSign,
 )
-from qamreconciliation_tpu.models.bicm import generate_table_s_to_b
+from qamreconciliation_jax.models.bicm import generate_table_s_to_b
 
 SQRT2 = np.sqrt(2.0)
 
@@ -401,11 +401,11 @@ def test_host_leaf_mapper_matches_device_mapper():
     import jax
     import numpy as np
 
-    from qamreconciliation_tpu.models.alphabet import PAMAlphabet
-    from qamreconciliation_tpu.models.mutual_information import (
+    from qamreconciliation_jax.models.alphabet import PAMAlphabet
+    from qamreconciliation_jax.models.mutual_information import (
         P_xhat, montecarlo_information_batched,
     )
-    from qamreconciliation_tpu.models.noisemapper import NoiseMapper
+    from qamreconciliation_jax.models.noisemapper import NoiseMapper
 
     pa = PAMAlphabet(2, 2.0)
     cfg = np.array([0, 1, 0, 1], np.uint8)
@@ -434,12 +434,12 @@ def test_with_sign_config_clone_matches_fresh_ctor():
     import jax
     import numpy as np
 
-    from qamreconciliation_tpu.models.alphabet import PAMAlphabet
-    from qamreconciliation_tpu.models.mutual_information import (
+    from qamreconciliation_jax.models.alphabet import PAMAlphabet
+    from qamreconciliation_jax.models.mutual_information import (
         P_xhat, montecarlo_information_batched,
         mutual_information_base_scheme,
     )
-    from qamreconciliation_tpu.models.noisemapper import NoiseMapper
+    from qamreconciliation_jax.models.noisemapper import NoiseMapper
 
     pa = PAMAlphabet(2, 2.0)
     cfg = np.array([1, 0, 0, 1], np.uint8)
@@ -490,8 +490,8 @@ def test_ginv_poly_matches_interp(bps):
     across sign configurations (which only transform the CDF target)."""
     import numpy as np
 
-    from qamreconciliation_tpu.models.alphabet import PAMAlphabet
-    from qamreconciliation_tpu.models.noisemapper import NoiseMapper
+    from qamreconciliation_jax.models.alphabet import PAMAlphabet
+    from qamreconciliation_jax.models.noisemapper import NoiseMapper
 
     pa = PAMAlphabet(bps, 2.0)
     M = pa.order
@@ -524,11 +524,11 @@ def test_mc_estimator_poly_ginv_statistically_equivalent():
     import jax
     import numpy as np
 
-    from qamreconciliation_tpu.models.alphabet import PAMAlphabet
-    from qamreconciliation_tpu.models.mutual_information import (
+    from qamreconciliation_jax.models.alphabet import PAMAlphabet
+    from qamreconciliation_jax.models.mutual_information import (
         P_xhat, montecarlo_information,
     )
-    from qamreconciliation_tpu.models.noisemapper import NoiseMapper
+    from qamreconciliation_jax.models.noisemapper import NoiseMapper
 
     pa = PAMAlphabet(2, 2.0)
     nm = NoiseMapper(pa, 0.35, dtype=np.float64)
@@ -553,8 +553,8 @@ def test_sign_config_owns_its_array():
     read ``sign_config`` lazily) from the device ``_sign_cfg`` copy."""
     import numpy as np
 
-    from qamreconciliation_tpu.models.alphabet import PAMAlphabet
-    from qamreconciliation_tpu.models.noisemapper import NoiseMapper
+    from qamreconciliation_jax.models.alphabet import PAMAlphabet
+    from qamreconciliation_jax.models.noisemapper import NoiseMapper
 
     pa = PAMAlphabet(2, 2.0)
     cfg = np.array([1, 0, 0, 1], np.uint8)

@@ -1,248 +1,208 @@
-"""Pallas kernel parity (interpret mode on the CPU mesh)."""
+"""The fused QC check-phase kernel (ops/pallas_kernels.py).
+
+On the CPU the kernel runs in the Pallas interpreter and is compared with
+the XLA check phase it replaces on a GPU (models/qc_decoder.
+check_phase_xla); the choice between the two is tested as a function of
+the platform.  The ``gpu``-marked test compares the compiled kernel on a
+card and skips elsewhere (chip_smoke.py runs the same comparison).
+"""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
+import pytest
 
-from qamreconciliation_tpu.ops.boxplus import check_node_update
-from qamreconciliation_tpu.ops.pallas_kernels import check_node_update_pallas
+from qamreconciliation_jax.models.matrix import Matrix
+from qamreconciliation_jax.models.qc_decoder import (
+    QCDecoder, check_phase_xla, fused_check_phase, make_qc_ira, make_qc_ldpc,
+)
+from qamreconciliation_jax.ops.pallas_kernels import (
+    CHECK_RULES, bp_check_phase_qc, check_phase_tiles, check_phase_warps,
+)
+
+BIG = 1e30   # the dense loop's neutral sentinel for padded slots
 
 
-def test_check_node_update_pallas_parity():
-    rng = np.random.default_rng(0)
-    C, dc, B = 300, 6, 16
-    v = jnp.asarray(rng.normal(0, 3, (C, dc, B)), jnp.float32)
-    synd = jnp.asarray(rng.integers(0, 2, (C, B)), jnp.int32)
-    mask = jnp.asarray(rng.random((C, dc)) < 0.9, jnp.float32)
-    ref = check_node_update(v, synd, mask)
-    # block_c=128 forces padding (300 -> 384) + multi-block grid
-    got = check_node_update_pallas(v, synd, mask, block_c=128, interpret=True)
-    np.testing.assert_allclose(np.asarray(ref), np.asarray(got), atol=1e-6)
+def _inputs(shape, dtype, seed=0, pad_rows=()):
+    """t, c2v, synd in the dense loop's layout; rows listed in
+    ``pad_rows`` get their last slot padded with the +BIG sentinel the way
+    gather_totals pads short rows of irregular codes."""
+    nb_c, dc, z, B = shape
+    rng = np.random.default_rng(seed)
+    t = rng.normal(0, 4, shape)
+    for r in pad_rows:
+        t[r, -1] = BIG
+    c2v = rng.normal(0, 2, shape)
+    for r in pad_rows:
+        c2v[r, -1] = 0.0
+    synd = rng.integers(0, 2, (nb_c, z, B))
+    return (jnp.asarray(t, dtype), jnp.asarray(c2v, dtype),
+            jnp.asarray(synd, jnp.int32))
+
+
+# (nb_c, dc, z, B), padded rows: aligned z; z that is not a multiple of
+# the z tile (masked rows); frame count that is not a power of two
+# (masked frames); the DVB-S2 lifting z=360 with dc 7 and a padded row
+SHAPES = [
+    ((3, 6, 16, 8), ()),
+    ((2, 7, 20, 12), ()),
+    ((2, 6, 37, 5), (1,)),
+    ((2, 7, 360, 8), (0,)),
+]
+
+
+@pytest.mark.parametrize("shape,pad_rows", SHAPES,
+                         ids=["aligned", "z_masked", "b_masked", "z360"])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rule", CHECK_RULES)
+def test_bp_check_phase_qc_parity(rule, dtype, shape, pad_rows):
+    """Interpret-mode kernel == XLA check phase: convergence flags equal,
+    messages equal to f32 summation order (the kernel folds the slot sum
+    left to right, XLA's reduce picks its own order); bf16 messages are
+    compared at one bf16 ulp of their magnitude."""
+    t, c2v, synd = _inputs(shape, dtype, pad_rows=pad_rows)
+    conv_k, out_k = bp_check_phase_qc(t, c2v, synd, rule=rule,
+                                      interpret=True)
+    conv_x, out_x = check_phase_xla(t, c2v, synd, rule=rule)
+    assert out_k.dtype == c2v.dtype and out_k.shape == c2v.shape
+    np.testing.assert_array_equal(np.asarray(conv_k), np.asarray(conv_x))
+    a = np.asarray(out_k, np.float32)
+    b = np.asarray(out_x, np.float32)
+    real = np.ones(shape, bool)
+    for r in pad_rows:
+        real[r, -1] = False      # padded slots are never scattered
+    assert np.isfinite(a[real]).all()
+    rtol = 2 ** -7 if dtype == jnp.bfloat16 else 1e-5
+    np.testing.assert_allclose(a[real], b[real], rtol=rtol, atol=1e-6)
+
+
+def test_check_phase_kernel_convergence_counts():
+    """A consistent tile converges and an inconsistent one does not,
+    frame by frame, across several z tiles and two frame tiles, the
+    second of them masked (B=160 -> tiles of 4 x 128: 10 z tiles)."""
+    nb_c, dc, z, B = 2, 6, 40, 160
+    assert check_phase_tiles(z, B) == (4, 128)
+    t, c2v, _ = _inputs((nb_c, dc, z, B), jnp.float32, seed=2)
+    parity = np.asarray(jnp.sum((t < 0).astype(jnp.int32), axis=1) & 1)
+    synd = parity.copy()
+    synd[1, 33, 2] ^= 1          # frame 2 breaks one check in a late tile
+    synd[0, 5, 131] ^= 1         # frame 131, in the masked frame tile
+    conv, _ = bp_check_phase_qc(t, c2v, jnp.asarray(synd), interpret=True)
+    want = np.ones(B, bool)
+    want[[2, 131]] = False
+    np.testing.assert_array_equal(np.asarray(conv), want)
 
 
 def test_pallas_extreme_llrs_no_nan():
-    v = jnp.asarray(
-        [[[0.0, 1e9, -1e9, 1e-30]] * 6], jnp.float32
-    )  # [1, 6, 4]
-    synd = jnp.zeros((1, 4), jnp.int32)
-    mask = jnp.ones((1, 6), jnp.float32)
-    out = check_node_update_pallas(v, synd, mask, block_c=8, interpret=True)
-    assert np.isfinite(np.asarray(out)).all()
+    """Saturated and zero LLRs stay finite for every rule."""
+    vals = np.array([0.0, 1e9, -1e9, 1e-30, -0.0, 3.0, -2.0, 1e4])
+    t = jnp.asarray(np.broadcast_to(vals, (1, 6, 8, 8)).copy(), jnp.float32)
+    c2v = jnp.zeros_like(t)
+    synd = jnp.zeros((1, 8, 8), jnp.int32)
+    for rule in CHECK_RULES:
+        _, out = bp_check_phase_qc(t, c2v, synd, rule=rule, interpret=True)
+        assert np.isfinite(np.asarray(out)).all(), rule
 
 
-def test_bp_check_phase_qc_parity():
-    """Fused QC check-phase kernel == XLA ops (conv + extrinsic update)."""
-    from qamreconciliation_tpu.ops.pallas_kernels import bp_check_phase_qc
-    from qamreconciliation_tpu.ops.boxplus import phi_llr
+def test_check_phase_tiles_and_validation():
+    """Tiles are powers of two of at most 512 elements per slot, frames
+    along the minor axis, one warp per 64 elements; unknown rules are
+    refused."""
+    assert check_phase_tiles(360, 128) == (4, 128)
+    assert check_phase_tiles(360, 8) == (64, 8)
+    assert check_phase_tiles(16, 8) == (16, 8)
+    assert check_phase_tiles(20, 12) == (32, 16)
+    assert check_phase_warps(4, 128) == 8 and check_phase_warps(4, 8) == 1
+    for z, B in ((360, 128), (7, 3), (1800, 256), (13, 1)):
+        zt, bt = check_phase_tiles(z, B)
+        assert zt & (zt - 1) == 0 and bt & (bt - 1) == 0
+        assert zt * bt <= 512
+        assert 1 <= check_phase_warps(zt, bt) <= 8
+    t, c2v, synd = _inputs((1, 6, 16, 8), jnp.float32)
+    with pytest.raises(ValueError, match="unknown rule"):
+        bp_check_phase_qc(t, c2v, synd, rule="bogus", interpret=True)
 
-    rng = np.random.default_rng(1)
-    nb_c, dc, z, B = 3, 6, 24, 8
-    t = jnp.asarray(rng.normal(0, 3, (nb_c, dc, z, B)), jnp.float32)
-    c2v = jnp.asarray(rng.normal(0, 1, (nb_c, dc, z, B)), jnp.float32)
-    synd = jnp.asarray(rng.integers(0, 2, (nb_c, z, B)), jnp.int32)
 
-    # XLA reference (same math as qc_decoder.qc_check_update)
-    v2c = t - c2v
-    phim = phi_llr(jnp.abs(v2c))
-    mag = phi_llr(jnp.sum(phim, axis=1, keepdims=True) - phim)
-    neg = (v2c < 0).astype(jnp.int32)
-    par = jnp.sum(neg, axis=1, keepdims=True) & 1
-    sign = (1 - 2 * jnp.bitwise_xor(par, neg)).astype(jnp.float32)
-    pref = (1 - 2 * synd).astype(jnp.float32)[:, None]
-    want = sign * pref * mag
-    parity = jnp.sum((t < 0).astype(jnp.int32), axis=1) & 1
-    conv_want = jnp.all((parity == synd).reshape(-1, B), axis=0)
-
-    got, viol = bp_check_phase_qc(t, c2v, synd, block_z=8, interpret=True)
-    np.testing.assert_allclose(np.asarray(want), np.asarray(got), atol=1e-6)
-    np.testing.assert_array_equal(
-        np.asarray(conv_want), np.asarray(jnp.sum(viol, axis=(0, 1)) == 0)
+def _jaxpr_has_kernel(dec, B=4):
+    f = dec._build_decode()
+    jaxpr = jax.make_jaxpr(f)(
+        jnp.zeros((dec.vnum, B), dec.dtype),
+        jnp.zeros((dec.cnum, B), jnp.int32), jnp.int32(3),
     )
+    return "pallas_call" in str(jaxpr)
 
 
-def test_bp_check_phase_generic_parity():
-    """Slot-major [dc, C, B] fused kernel == the node-major XLA reference
-    (check_node_update) transposed, plus check_node_update_sm directly."""
-    from qamreconciliation_tpu.ops.boxplus import check_node_update_sm
-    from qamreconciliation_tpu.ops.pallas_kernels import bp_check_phase_generic
-
-    rng = np.random.default_rng(2)
-    C, dc, B = 100, 5, 8
-    t = jnp.asarray(rng.normal(0, 3, (dc, C, B)), jnp.float32)
-    c2v = jnp.asarray(rng.normal(0, 1, (dc, C, B)), jnp.float32)
-    synd = jnp.asarray(rng.integers(0, 2, (C, B)), jnp.int32)
-    mask = jnp.asarray(rng.random((dc, C)) < 0.85, jnp.float32)
-
-    # node-major reference, transposed into slot-major for comparison
-    want = jnp.swapaxes(
-        check_node_update(
-            jnp.swapaxes(t - c2v, 0, 1), synd, jnp.swapaxes(mask, 0, 1)
-        ),
-        0, 1,
-    )
-    want_sm = check_node_update_sm(t - c2v, synd, mask)
-    np.testing.assert_allclose(
-        np.asarray(want), np.asarray(want_sm), atol=1e-6
-    )
-    mask_i = mask.astype(jnp.int32)
-    parity = jnp.sum((t < 0).astype(jnp.int32) * mask_i[:, :, None], 0) & 1
-    conv_want = jnp.all(parity == synd, axis=0)
-
-    got, viol = bp_check_phase_generic(
-        t, c2v, synd, mask, block_c=32, interpret=True  # padding: 100 -> 128
-    )
-    np.testing.assert_allclose(np.asarray(want), np.asarray(got), atol=1e-6)
-    np.testing.assert_array_equal(
-        np.asarray(conv_want), np.asarray(jnp.sum(viol, axis=0) == 0)
-    )
+@pytest.mark.parametrize("platform,kw,want", [
+    ("gpu", {}, True),
+    ("cpu", {}, False),
+    ("gpu", {"sr_messages": True, "dtype": jnp.bfloat16}, False),
+    ("gpu", {"schedule": "layered"}, False),
+], ids=["gpu", "cpu", "gpu_sr_messages", "gpu_layered"])
+def test_check_phase_choice_by_platform(monkeypatch, platform, kw, want):
+    """The dense flooding loop takes the kernel exactly on a GPU; the
+    stochastic-rounding experiment and the layered schedule stay on XLA
+    ops.  Tracing only: nothing is compiled for the platform."""
+    assert fused_check_phase("gpu") and not fused_check_phase("cpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    base, _, _ = make_qc_ldpc(6, 8, dv=3, dc=6, seed=1)
+    assert _jaxpr_has_kernel(QCDecoder(base, 8, **kw)) is want
 
 
-def test_decoders_pallas_path_match_xla():
-    """Full decodes with use_pallas=True (interpret) == XLA path exactly."""
-    from qamreconciliation_tpu.models.decoder import Decoder
-    from qamreconciliation_tpu.models.matrix import Matrix
-    from qamreconciliation_tpu.models.qc_decoder import QCDecoder, make_qc_ldpc
+def test_sharded_qc_decoder_never_takes_kernel(monkeypatch):
+    """GSPMD cannot partition the kernel: the z-sharded decoder keeps the
+    XLA check phase even on a GPU."""
+    from qamreconciliation_jax.parallel import make_mesh
+    from qamreconciliation_jax.parallel.graph_shard import ShardedQCDecoder
 
-    rng = np.random.default_rng(3)
-    base, vid, cid = make_qc_ldpc(6, 16, dv=3, dc=6, seed=5)
-    mat = Matrix(vid, cid)
-    B = 5
-    word = rng.integers(0, 2, (B, 96))
-    synd = np.asarray(mat.eval_syndrome(word))
-    llr = (1 - 2 * word) * 2.5 + rng.normal(0, 1.6, word.shape)
-
-    for mk in (
-        lambda up: Decoder(vid, cid, dtype=jnp.float32, use_pallas=up),
-        lambda up: QCDecoder(base, 16, dtype=jnp.float32, use_pallas=up),
-    ):
-        s0, i0, f0 = mk(False).decode_batch(llr, synd, 25)
-        s1, i1, f1 = mk(True).decode_batch(llr, synd, 25)
-        np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
-        np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
-        np.testing.assert_allclose(
-            np.asarray(f0), np.asarray(f1), rtol=1e-5, atol=1e-5
-        )
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    base, _, _ = make_qc_ldpc(6, 8, dv=3, dc=6, seed=1)
+    dec = ShardedQCDecoder(base, 8, make_mesh(2, axis_name="gz"))
+    assert not _jaxpr_has_kernel(dec)
 
 
-def test_bp_check_phase_bf16_storage_f32_math():
-    """bf16 inputs: kernel computes in f32, stores bf16 (no NaN, close to
-    the f32 result at bf16 resolution)."""
-    from qamreconciliation_tpu.ops.pallas_kernels import bp_check_phase_qc
-
-    rng = np.random.default_rng(4)
-    nb_c, dc, z, B = 2, 6, 16, 8
-    t32 = jnp.asarray(rng.normal(0, 3, (nb_c, dc, z, B)), jnp.float32)
-    c32 = jnp.asarray(rng.normal(0, 1, (nb_c, dc, z, B)), jnp.float32)
-    synd = jnp.asarray(rng.integers(0, 2, (nb_c, z, B)), jnp.int32)
-    out32, _ = bp_check_phase_qc(t32, c32, synd, block_z=8, interpret=True)
-    out16, _ = bp_check_phase_qc(
-        t32.astype(jnp.bfloat16), c32.astype(jnp.bfloat16), synd,
-        block_z=8, interpret=True,
-    )
-    assert out16.dtype == jnp.bfloat16
-    a16 = np.asarray(out16.astype(jnp.float32))
-    assert np.isfinite(a16).all()
-    np.testing.assert_allclose(a16, np.asarray(out32), rtol=0.1, atol=0.15)
+def _frames(vid, cid, V, B, seed, noise=1.6):
+    rng = np.random.default_rng(seed)
+    word = rng.integers(0, 2, (B, V))
+    synd = np.asarray(Matrix(vid, cid).eval_syndrome(word))
+    llr = (1 - 2 * word) * 2.5 + rng.normal(0, noise, word.shape)
+    return llr, synd
 
 
-def test_pick_zb_alignment_and_vmem():
-    """_pick_zb: 8-aligned or whole-z, VMEM-bounded, None when impossible.
-
-    Regression for z=450 (DVB-S2-like lifting 2*3^2*5^2: no 8-aligned
-    divisor, too big to fit whole at B=128) which crashed the TPU QC path
-    with a Mosaic layout error before the fallback existed.
-    """
-    from qamreconciliation_tpu.ops.pallas_kernels import _pick_zb
-
-    assert _pick_zb(450, B=128, dc=6) is None
-    zb = _pick_zb(128, B=128, dc=6)
-    assert zb is not None and 128 % zb == 0 and (zb % 8 == 0 or zb == 128)
-    # small z fits whole even if unaligned
-    assert _pick_zb(12, B=128, dc=6) == 12
-    # budget respected on PADDED tile dims (minor dim pads to 128 lanes,
-    # -2 dim to 8 sublanes): <= 12MB of 14 [1, dc, ZB, B] f32 temporaries.
-    # Regression for B=16 (small streaming batches): the raw-B model
-    # under-counted 8x and the kernel OOMed scoped vmem at compile time.
-    for z, B, dc in [(5400, 128, 6), (1024, 256, 7), (450, 128, 6),
-                     (1800, 16, 6), (1800, 64, 6)]:
-        got = _pick_zb(z, B=B, dc=dc)
-        if got is not None:
-            b_pad = -(-B // 128) * 128
-            z_pad = -(-got // 8) * 8
-            assert 14 * dc * z_pad * b_pad * 4 <= 12 * 2**20
-            assert z % got == 0
-
-
-def test_qc_decoder_pallas_fallback_no_legal_blocking():
-    """QCDecoder with use_pallas=True at z=450-style shapes falls back to
-    the XLA check phase (with a warning) instead of crashing."""
-    import warnings
-
-    from qamreconciliation_tpu.models.matrix import Matrix
-    from qamreconciliation_tpu.models.qc_decoder import QCDecoder, make_qc_ldpc
-
-    rng = np.random.default_rng(7)
-    z = 450
-    base, vid, cid = make_qc_ldpc(4, z, dv=2, dc=4, seed=1)
-    mat = Matrix(vid, cid)
-    B = 128  # the VMEM-infeasible batch (dc=4: cap ~438 < 450, no
-    # 8-aligned divisor of 450 = 2*3^2*5^2)
-    word = rng.integers(0, 2, (B, 4 * z))
-    synd = np.asarray(mat.eval_syndrome(word))
-    llr = (1 - 2 * word) * 3.0 + rng.normal(0, 1.2, word.shape)
-
-    with warnings.catch_warnings(record=True) as rec:
-        warnings.simplefilter("always")
-        s1, i1, f1 = QCDecoder(base, z, dtype=jnp.float32,
-                               use_pallas=True).decode_batch(llr, synd, 6)
-    assert any("no legal VMEM blocking" in str(w.message) for w in rec)
-    s0, i0, f0 = QCDecoder(base, z, dtype=jnp.float32,
-                           use_pallas=False).decode_batch(llr, synd, 6)
+@pytest.mark.parametrize("rule,phi", [("sumproduct", "phi"),
+                                      ("sumproduct", "tanhfb"),
+                                      ("minsum", "phi")])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decoders_pallas_path_match_xla(fused_check, rule, phi, dtype):
+    """Whole decodes through the kernel (the GPU path, interpreted) ==
+    the XLA path: same (success, iters), finals equal on the CPU, where
+    both sum in the same precision."""
+    base, vid, cid = make_qc_ira(4, 4, 16, dv=3, seed=2)
+    kw = dict(dtype=dtype, check_rule=rule, check_phi=phi)
+    xla = QCDecoder(base, 16, **kw)
+    llr, synd = _frames(vid, cid, xla.vnum, B=6, seed=3)
+    s0, i0, f0 = xla.decode_batch(llr, synd, 20)
+    fused_check()
+    s1, i1, f1 = QCDecoder(base, 16, **kw).decode_batch(llr, synd, 20)
     np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
     np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
+    np.testing.assert_allclose(np.asarray(f0, np.float32),
+                               np.asarray(f1, np.float32),
+                               rtol=1e-5, atol=1e-5)
+    assert int(np.asarray(s0).sum()) > 0
 
 
-def test_rowgroup_policy_matrix():
-    """Round-5 auto row-group policy (measured regime map, BASELINE.md):
-    whole-z single-chunk codes stay ungrouped regardless of width
-    (dc<=11 measured faster ungrouped); chunked narrow codes stay
-    ungrouped; chunked WIDE rows (dc>10) group even on a chunk-count
-    tie (ungrouped dc=17 at ZC=180 is a remote-compile failure)."""
-    from qamreconciliation_tpu.ops.pallas_kernels import _pick_rowgroup
-
-    assert _pick_rowgroup(1800, 128, 6) is None     # regular, ZC=900
-    assert _pick_rowgroup(360, 128, 6) is None      # regular whole-z
-    assert _pick_rowgroup(360, 128, 10) is None     # IRA r1/2 whole-z
-    assert _pick_rowgroup(360, 128, 11) is None     # bench 1b whole-z
-    assert _pick_rowgroup(1800, 128, 10) == 6       # r4 measured config
-    assert _pick_rowgroup(360, 128, 17) == 8        # rate-3/4 fix
-    assert _pick_rowgroup(1800, 128, 17) == 6
-
-
-def test_auto_rowgroup_measured_matrix():
-    """auto_rowgroup (chunk policy + VMEM-pressure fallback) against the
-    full measured matrix: benchmark codes (state 87.1 MB) stay
-    UNGROUPED — an earlier +48 MiB-headroom trigger silently grouped
-    them for ~8-10% (round-5 postmortem) — while the DVB-S2
-    constructions (93-98 MB states) group at the measured-working caps
-    (4; 6 for the dc=22 rate-5/6 code, which fails at 8)."""
-    import jax.numpy as jnp
-
-    from qamreconciliation_tpu.models.dvbs2 import Z, make_table, to_qc_base
-    from qamreconciliation_tpu.models.qc_decoder import (
-        QCDecoder, make_qc_ira, make_qc_ldpc,
-    )
-    from qamreconciliation_tpu.ops.pallas_kernels import auto_rowgroup
-
-    def rows(base, z):
-        return QCDecoder(base, z, dtype=jnp.bfloat16)._rows
-
-    for rate, exp in (("1/2", 4), ("2/3", 4), ("3/4", 4), ("5/6", 6)):
-        base = to_qc_base(make_table(rate, seed=0), wrap="full")
-        assert auto_rowgroup(rows(base, Z), Z, 128, jnp.bfloat16) == exp, rate
-    for nbv, z in ((180, 360), (36, 1800)):
-        b, _, _ = make_qc_ldpc(nbv, z, dv=3, dc=6, seed=12345)
-        assert auto_rowgroup(rows(b, z), z, 128, jnp.bfloat16) is None
-    b, _, _ = make_qc_ira(90, 90, 360, dv=3, seed=12345)
-    assert auto_rowgroup(rows(b, 360), 360, 128, jnp.bfloat16) is None
-    b, _, _ = make_qc_ira(135, 45, 360, dv=3, seed=12345)
-    assert auto_rowgroup(rows(b, 360), 360, 128, jnp.bfloat16) == 8
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", CHECK_RULES)
+def test_check_phase_compiled_matches_xla(gpu, rule):
+    """On a card: the Triton-compiled kernel == the XLA check phase at the
+    DVB-S2 shape (z=360, B=128, dc 7), bf16 messages within two ulps (the
+    tolerance chip_smoke.py states)."""
+    t, c2v, synd = _inputs((90, 7, 360, 128), jnp.bfloat16)
+    conv_k, out_k = bp_check_phase_qc(t, c2v, synd, rule=rule)
+    conv_x, out_x = check_phase_xla(t, c2v, synd, rule=rule)
+    np.testing.assert_array_equal(np.asarray(conv_k), np.asarray(conv_x))
+    np.testing.assert_allclose(np.asarray(out_k, np.float32),
+                               np.asarray(out_x, np.float32),
+                               rtol=2 ** -6, atol=1e-6)

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from qamreconciliation_tpu import Decoder, Matrix, PAMAlphabet
-from qamreconciliation_tpu.parallel import make_mesh, shard_round
-from qamreconciliation_tpu.sims import ReconciliationEngine
-from qamreconciliation_tpu.utils import make_regular_ldpc
+from qamreconciliation_jax import Decoder, Matrix, PAMAlphabet
+from qamreconciliation_jax.parallel import make_mesh, shard_round
+from qamreconciliation_jax.sims import ReconciliationEngine
+from qamreconciliation_jax.utils import make_regular_ldpc
 
 
 @pytest.fixture(scope="module")
@@ -42,7 +42,7 @@ def test_sharded_round_equals_manual_per_device_sum(setup):
     Es = pa.variance
     N0 = Es * 10 ** (-snr / 10) / 2
     sigma = math.sqrt(N0)
-    from qamreconciliation_tpu.models.noisemapper import NoiseMapper
+    from qamreconciliation_jax.models.noisemapper import NoiseMapper
 
     nm = NoiseMapper(pa, N0, cfg, dtype=jnp.float64)
     nm._ensure_llr_poly()  # default poly-mode consumer: build before jit
@@ -85,7 +85,7 @@ class TestMaybeDistributedInit:
     """CLI multi-host wiring (SURVEY §2 collective-backend row)."""
 
     def test_noop_without_coordinator(self, monkeypatch):
-        from qamreconciliation_tpu.parallel import mesh
+        from qamreconciliation_jax.parallel import mesh
 
         monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
         monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
@@ -99,7 +99,7 @@ class TestMaybeDistributedInit:
 
         import jax
 
-        from qamreconciliation_tpu.parallel import mesh
+        from qamreconciliation_jax.parallel import mesh
 
         monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "203.0.113.1:1234")
         monkeypatch.setitem(mesh._dist_state, "initialized", False)
@@ -115,9 +115,9 @@ class TestMaybeDistributedInit:
 
     def test_cli_reaches_init(self, monkeypatch, tmp_path):
         """Every sweep CLI calls maybe_distributed_init before device use."""
-        from qamreconciliation_tpu.parallel import mesh
-        from qamreconciliation_tpu.sims import sim_bsc
-        from qamreconciliation_tpu.utils import make_regular_ldpc, save_edge_csv
+        from qamreconciliation_jax.parallel import mesh
+        from qamreconciliation_jax.sims import sim_bsc
+        from qamreconciliation_jax.utils import make_regular_ldpc, save_edge_csv
 
         calls = []
         monkeypatch.setattr(

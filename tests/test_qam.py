@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from qamreconciliation_tpu import Decoder, Matrix, PAMAlphabet
-from qamreconciliation_tpu.models.noisemapper import NoiseMapper
-from qamreconciliation_tpu.models.qam import QAMAlphabet
-from qamreconciliation_tpu.utils import make_regular_ldpc
+from qamreconciliation_jax import Decoder, Matrix, PAMAlphabet
+from qamreconciliation_jax.models.noisemapper import NoiseMapper
+from qamreconciliation_jax.models.qam import QAMAlphabet
+from qamreconciliation_jax.utils import make_regular_ldpc
 
 
 def test_rejects_odd_bps():

@@ -4,9 +4,8 @@ The compressed loop (models/qc_decoder.py:_build_compressed) stores each
 check's messages as (m1, m2, argmin, packed signs) instead of the dense
 c2v [nb_c, dc, z, B] array.  Min-sum magnitudes are selections, so the
 reconstruction is exact: success/iters must be bit-identical and the final
-LLRs equal to the dense min-sum decoder computed with f32 subtraction of
-bf16-stored operands (the fused-Pallas check-phase numerics,
-ops/pallas_kernels.py:_check_phase_kernel).  Convergence semantics per
+LLRs equal to the dense min-sum decoder, which also subtracts
+bf16-stored operands in f32.  Convergence semantics per
 reference: qamreconciliation/decoder.pyx:391-436.
 """
 
@@ -14,9 +13,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from qamreconciliation_tpu import Matrix, PAMAlphabet
-from qamreconciliation_tpu.models.qc_decoder import QCDecoder, make_qc_ldpc
-from qamreconciliation_tpu.sims import ReconciliationEngine
+from qamreconciliation_jax import Matrix, PAMAlphabet
+from qamreconciliation_jax.models.qc_decoder import QCDecoder, make_qc_ldpc
+from qamreconciliation_jax.sims import ReconciliationEngine
 
 
 @pytest.fixture(scope="module")
@@ -39,11 +38,10 @@ def _frames(qc, B, seed=1, noise=2.0):
 @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
 def test_compressed_matches_dense_minsum(qc, dtype):
     """(success, iters) bit-identical, final LLRs identical, vs the dense
-    min-sum decoder with the Pallas-kernel numerics (interpret mode on
-    CPU): both paths subtract bf16-stored operands in f32."""
+    min-sum decoder: both paths subtract bf16-stored operands in f32."""
     base, vid, cid = qc
-    dense = QCDecoder(base, 16, dtype=dtype, use_pallas=True,
-                      check_rule="minsum", compressed=False)
+    dense = QCDecoder(base, 16, dtype=dtype, check_rule="minsum",
+                      compressed=False)
     comp = QCDecoder(base, 16, dtype=dtype, check_rule="minsum",
                      compressed=True)
     llr, synd = _frames(qc, B=8)

@@ -1,15 +1,14 @@
 """Stochastic message rounding (ops/boxplus.stochastic_round_bf16 +
-QCDecoder(sr_messages=True)) — the round-5 knee-quality lever
-(BASELINE.md round-4 knee table: the bf16 FER cost lives in c2v message
-round-to-nearest bias)."""
+QCDecoder(sr_messages=True)) — a knee-quality lever (decoding-quality
+runs put the bf16 FER cost in c2v message round-to-nearest bias)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from qamreconciliation_tpu.ops.boxplus import stochastic_round_bf16
-from qamreconciliation_tpu.models.qc_decoder import QCDecoder, make_qc_ldpc
+from qamreconciliation_jax.ops.boxplus import stochastic_round_bf16
+from qamreconciliation_jax.models.qc_decoder import QCDecoder, make_qc_ldpc
 
 
 def test_sr_neighbours_and_unbiasedness():
@@ -51,8 +50,7 @@ def test_sr_decode_matches_statistics():
     lappr = (1.0 - 2.0 * word) * 2.0 + rng.standard_normal(word.shape)
     res = {}
     for sr in (False, True):
-        dec = QCDecoder(base, 32, dtype=jnp.bfloat16, sr_messages=sr,
-                        use_pallas=False)
+        dec = QCDecoder(base, 32, dtype=jnp.bfloat16, sr_messages=sr)
         synd = dec.syndrome_from_bits(jnp.asarray(word.T))
         ok, iters, _ = dec.decode_batch(
             jnp.asarray(lappr, jnp.bfloat16), jnp.asarray(synd).T, 50
@@ -65,6 +63,7 @@ def test_sr_config_validation():
     base, _, _ = make_qc_ldpc(12, 32, dv=3, dc=6, seed=3)
     with pytest.raises(ValueError, match="bfloat16"):
         QCDecoder(base, 32, dtype=jnp.float32, sr_messages=True)
-    for kw in (dict(resident=True), dict(schedule="layered")):
+    for kw in (dict(compressed=True, check_rule="minsum"),
+               dict(schedule="layered")):
         with pytest.raises(ValueError, match="dense flooding"):
             QCDecoder(base, 32, dtype=jnp.bfloat16, sr_messages=True, **kw)

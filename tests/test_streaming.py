@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from qamreconciliation_tpu import Decoder, Matrix, PAMAlphabet
-from qamreconciliation_tpu.models.noisemapper import NoiseMapper
-from qamreconciliation_tpu.sims.streaming import StreamReconciler
-from qamreconciliation_tpu.utils import make_regular_ldpc
+from qamreconciliation_jax import Decoder, Matrix, PAMAlphabet
+from qamreconciliation_jax.models.noisemapper import NoiseMapper
+from qamreconciliation_jax.sims.streaming import StreamReconciler
+from qamreconciliation_jax.utils import make_regular_ldpc
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +97,7 @@ def test_stream_carry_preserved(chain):
 
 
 def test_stream_result_fer(chain):
-    from qamreconciliation_tpu.sims.streaming import StreamResult
+    from qamreconciliation_jax.sims.streaming import StreamResult
 
     r = StreamResult()
     assert r.fer == 0.0
@@ -109,8 +109,8 @@ def test_stream_single_compiled_program(chain):
     """Two different stream chunkings share ONE compiled program per side.
 
     Bob pads partial tail blocks to the fixed batch (mirroring Alice), so
-    varying frame counts per call never retrace — each retrace costs minutes
-    on remote-compile TPU backends.
+    varying frame counts per call never retrace — each retrace of a DVB-S2-size
+    program costs tens of seconds.
     """
     sr_a, _, res_a = _run_stream(chain, irregular_chunks, seed=7)
     assert sr_a._bob_jit._cache_size() == 1
@@ -157,7 +157,7 @@ def test_stream_defer_matches_immediate_with_fewer_dispatches(chain):
             out.iterations.extend(r.iterations)
         return sr, all_words, out
 
-    from qamreconciliation_tpu.sims.streaming import StreamResult
+    from qamreconciliation_jax.sims.streaming import StreamResult
 
     sr_i, words_i, out_i = run(False)
     sr_d, words_d, out_d = run(True)
@@ -176,7 +176,7 @@ def test_stream_defer_matches_immediate_with_fewer_dispatches(chain):
 def test_stream_with_qc_decoder():
     """StreamReconciler works with the circulant-roll QCDecoder (duck-typed
     via _build_decode, like the sweep engines)."""
-    from qamreconciliation_tpu.models.qc_decoder import QCDecoder, make_qc_ldpc
+    from qamreconciliation_jax.models.qc_decoder import QCDecoder, make_qc_ldpc
 
     base, vid, cid = make_qc_ldpc(12, 16, dv=3, dc=6, seed=4)
     dec = QCDecoder(base, 16, dtype=jnp.float64)
@@ -279,7 +279,7 @@ def test_stream_fused_tail_and_uneven_streams(chain):
 def test_stream_fused_frame_sharded_matches_single_device(chain):
     """stream_fused over an 8-device mesh (frame-shard DP, no
     collectives) is bit-exact vs the single-device fused driver."""
-    from qamreconciliation_tpu.parallel import make_mesh
+    from qamreconciliation_jax.parallel import make_mesh
 
     dec, mat, pa, nm, sigma = chain
     rng = np.random.default_rng(21)

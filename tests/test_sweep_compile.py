@@ -2,8 +2,7 @@
 
 The engine passes the NoiseMapper as a pytree argument with SNR-independent
 table shapes (models/noisemapper.py), so one compiled round function must
-serve every SNR point — critical on remote-compile TPU backends where each
-new program costs minutes.
+serve every SNR point: a DVB-S2-size round compiles for tens of seconds.
 """
 
 import math
@@ -14,11 +13,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from qamreconciliation_tpu import Decoder, Matrix, PAMAlphabet
-from qamreconciliation_tpu.models.noisemapper import NoiseMapper
-from qamreconciliation_tpu.sims import ReconciliationEngine
-from qamreconciliation_tpu.sims.bitchannel import BitChannelEngine
-from qamreconciliation_tpu.utils import make_regular_ldpc
+from qamreconciliation_jax import Decoder, Matrix, PAMAlphabet
+from qamreconciliation_jax.models.noisemapper import NoiseMapper
+from qamreconciliation_jax.sims import ReconciliationEngine
+from qamreconciliation_jax.sims.bitchannel import BitChannelEngine
+from qamreconciliation_jax.utils import make_regular_ldpc
 
 
 def _setup(n=120, dtype=jnp.float32):
@@ -79,7 +78,7 @@ def test_noisemapper_is_pytree():
 def test_numpy_oracle_end_to_end_decodes():
     """Oracle-generated frames decode cleanly at high SNR: the float64 host
     pipeline and the device decoder agree on the Gray-word convention."""
-    from qamreconciliation_tpu.utils.reference_np import softening_frames_np
+    from qamreconciliation_jax.utils.reference_np import softening_frames_np
 
     dec, mat, pa = _setup(n=120, dtype=jnp.float64)
     snr = 10.0
@@ -97,7 +96,7 @@ def test_numpy_oracle_end_to_end_decodes():
 def test_numpy_oracle_matches_device_llr_distribution():
     """Oracle LLR signs at moderate SNR mostly agree with Bob's word —
     basic direction/scale sanity for the host pipeline."""
-    from qamreconciliation_tpu.utils.reference_np import softening_frames_np
+    from qamreconciliation_jax.utils.reference_np import softening_frames_np
 
     pa = PAMAlphabet(2, 2.0)
     snr = 6.0
@@ -176,7 +175,7 @@ def test_point_batched_sweep_with_qc_decoder():
     """--point-batch composes with the QC roll decoder (run_sweep_batched
     vmaps the round over stacked NoiseMapper pytrees; the decoder rides in
     the closure regardless of its message-movement strategy)."""
-    from qamreconciliation_tpu.models.qc_decoder import QCDecoder, make_qc_ldpc
+    from qamreconciliation_jax.models.qc_decoder import QCDecoder, make_qc_ldpc
 
     base, vid, cid = make_qc_ldpc(12, 16, dv=3, dc=6, seed=4)
     dec = QCDecoder(base, 16)
@@ -198,7 +197,7 @@ def test_point_batched_sweep_with_layered_schedule():
     """--point-batch also composes with the layered (serial-C) schedule:
     the chunked while_loop + per-sweep DUS updates vmap cleanly over the
     stacked SNR-point axis."""
-    from qamreconciliation_tpu.models.qc_decoder import QCDecoder, make_qc_ldpc
+    from qamreconciliation_jax.models.qc_decoder import QCDecoder, make_qc_ldpc
 
     base, vid, cid = make_qc_ldpc(12, 16, dv=3, dc=6, seed=4)
     dec = QCDecoder(base, 16, schedule="layered", check_rule="minsum")
